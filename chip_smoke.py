@@ -1,0 +1,315 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (exaconstit_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing a line; any failed check exits non-zero with no
+result line:
+
+1. device: the card's name and power limit (nvidia-smi), TF32 off;
+2. build: nvcc builds the dogleg kernel from csrc/ (register/spill
+   counts from -Xptxas -v);
+3. the kernel against its plain PyTorch version on seeded inputs at
+   884,736 points (a 48^3 mesh x 8 quadrature points) and 262,144
+   (32^3): converged flags, solutions (atol 2e-5), residuals, inactive
+   lanes untouched, median times, iteration histogram;
+4. the f64-polished staggered solve through the kernel against through
+   the plain version, 262,144 points, 2 substeps (atol 5e-9);
+5. the main path: ``run_simulation`` on an in-repo 32^3 FCC Voce case
+   (500 Voronoi grains, uniaxial tension, dt 0.1, 0.2, 0.5, 1.0) on the
+   card, with the kernel's launch count reset just before and read just
+   after; every step converges, stress is finite, and the hardening
+   slope drops below half the elastic one;
+6. the same case at 4^3 for 2 steps on the card and on the CPU (the
+   plain versions there): average stress to rel 1e-6;
+7. a ``kernels`` JSON line; then the ``ok`` JSON line, last.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+STAGE_SIZES = (884_736, 262_144)
+TOL, MAX_ITER = 1e-6, 200
+MAIN_DTS = (0.1, 0.2, 0.5, 1.0)
+TPU_KERNEL = "exaconstit_tpu/solvers/dogleg_pallas.py:211"
+KERNEL_SOURCE = "exaconstit_tpu_torch/csrc/dogleg_voce.cu"
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def cuda_time_ms(fn, reps=3):
+    """Median of ``reps`` timed calls (CUDA events) after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return float(np.median(times))
+
+
+def stage_inputs(model, n, dt, seed):
+    """Seeded f32 stage inputs on the card, made as the JAX package's
+    tests/test_dogleg_pallas.py makes them; every 997th lane inactive."""
+    from exaconstit_tpu_torch.models import evptn_cm as cm
+    from exaconstit_tpu_torch.utils.tensors import BASIS_DEV
+    rng = np.random.default_rng(seed)
+    d = rng.normal(size=(n, 3, 3)).astype(np.float32) * 1e-3
+    d = 0.5 * (d + np.swapaxes(d, 1, 2))
+    d -= np.trace(d, axis1=1, axis2=2)[:, None, None] / 3.0 * np.eye(3)
+    dev = "cuda"
+
+    def f32(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
+                               device=dev)
+
+    d_vecd = f32(np.einsum("kij,nij->kn", BASIS_DEV, d))
+    w = f32(rng.normal(size=(3, n)) * 1e-3 * 0.3)
+    q = rng.normal(size=(n, 4))
+    q = f32((q / np.linalg.norm(q, axis=1, keepdims=True)).T)
+    e = f32(rng.normal(size=(5, n)) * 2e-4)
+    h = f32(0.017 + rng.uniform(0, 0.01, size=(1, n)))
+    dts = torch.full((n,), dt, dtype=torch.float32, device=dev)
+    Dsm = cm.vecd_to_mat_cm(d_vecd)
+    deff = torch.sqrt(2.0 / 3.0 * torch.sum(d_vecd * d_vecd, dim=0))
+    x0 = torch.cat([cm._initial_guess_cm(model, dts, Dsm, deff, e, q, h),
+                    torch.zeros(3, n, device=dev)])
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    active[::997] = False
+    return d_vecd, w, e, q, h, dts, x0, active
+
+
+def phase_device():
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    log(smi)
+    log(f"[1 device] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    from exaconstit_tpu_torch import set_precision_policy
+    set_precision_policy()
+    check(not torch.backends.cuda.matmul.allow_tf32, "matmul TF32 is on")
+    check(not torch.backends.cudnn.allow_tf32, "cuDNN TF32 is on")
+    check(torch.get_float32_matmul_precision() == "highest",
+          "f32 matmul precision is not 'highest'")
+    return smi
+
+
+def phase_build():
+    from exaconstit_tpu_torch.solvers.dogleg_cuda import KERNEL
+    t0 = time.perf_counter()
+    path = KERNEL.build()
+    secs = time.perf_counter() - t0
+    logf = path.with_suffix(".log")
+    build_log = logf.read_text() if logf.exists() else KERNEL.build_log
+    ptxas = [ln.strip() for ln in build_log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    log(f"[2 build] {secs:.2f} s -> {path.name}; " + " | ".join(ptxas))
+    KERNEL.lib()
+    return ptxas
+
+
+def phase_stage(model):
+    """Kernel against the plain version at the main path's batch sizes."""
+    from exaconstit_tpu_torch.models import evptn_cm as cm
+    from exaconstit_tpu_torch.solvers import dogleg_cuda as dc
+    results = {}
+    for n in STAGE_SIZES:
+        d, w, e, q, h, dts, x0, active = stage_inputs(model, n, 0.08,
+                                                      seed=3)
+        x0_keep = x0.clone()
+
+        def kernel():
+            return dc.dogleg_stage(model, x0, h, dts, d, w, e, q, active,
+                                   TOL, MAX_ITER)
+
+        def plain():
+            return dc.dogleg_stage_reference(model, x0, h, dts, d, w, e, q,
+                                             active, TOL, MAX_ITER)
+
+        x_k, ok_k, it_k, _, J_k = kernel()
+        x_r, ok_r, it_r, _, J_r = plain()
+        torch.cuda.synchronize()
+        check(torch.equal(x0, x0_keep), "the stage modified its input")
+        differ = (ok_k != ok_r).nonzero().flatten().tolist()
+        for lane in differ[:20]:
+            log(f"[3 stage {n}] ok differs at lane {lane}: kernel "
+                f"ok={bool(ok_k[lane])} iters={int(it_k[lane])}, plain "
+                f"ok={bool(ok_r[lane])} iters={int(it_r[lane])}")
+        check(len(differ) <= 1e-4 * n,
+              f"{len(differ)} of {n} converged flags differ")
+        both = ok_k & ok_r
+        err = float((x_k - x_r)[:, both].abs().max())
+        check(err <= 2e-5, f"stage x differs by {err:.3e} > 2e-5 at {n}")
+        # the residual at the kernel's x, evaluated in f64
+        f64 = [a.double() for a in (x_k, h, dts, d, w, e, q)]
+        r = cm.residual_cm(model, f64[0], f64[1], f64[2],
+                           cm.vecd_to_mat_cm(f64[3]), f64[4], f64[5], f64[6])
+        rn = torch.sqrt(torch.sum(r * r, dim=0))[ok_k & active]
+        rmax = float(rn.max())
+        check(rmax < 1.01 * TOL,
+              f"residual {rmax:.3e} at the kernel's converged x >= tol")
+        inactive = ~active
+        check(torch.equal(x_k[:, inactive], x0[:, inactive]),
+              "the kernel touched an inactive lane")
+        check(bool(ok_k[inactive].all()) and int(it_k[inactive].max()) == 0,
+              "inactive lanes must read converged after 0 iterations")
+        ms_k = cuda_time_ms(kernel)
+        ms_r = cuda_time_ms(plain)
+        hist = torch.bincount(it_k[active].long()).cpu().tolist()
+        log(f"[3 stage {n}] kernel {ms_k:.3f} ms, plain {ms_r:.3f} ms, "
+            f"max|dx| {err:.3e}, max f64 |r| {rmax:.3e} "
+            f"({int((rn >= TOL).sum())} lanes in [tol, 1.01 tol)), "
+            f"converged {int(ok_k.sum())}/{n}, flags differ {len(differ)}")
+        log(f"[3 stage {n}] iteration histogram (count per iters "
+            f"0..{len(hist) - 1}): {hist}")
+        results[n] = dict(ms=ms_k, plain_ms=ms_r, max_abs_err=err)
+    return results
+
+
+def phase_staggered(model):
+    """The f64-polished staggered solve: kernel stage vs plain stage."""
+    from exaconstit_tpu_torch.models import evptn_cm as cm
+    from exaconstit_tpu_torch.solvers import dogleg_cuda as dc
+    n, dt = 262_144, 0.25
+    d, w, e, q, h, _, _, _ = stage_inputs(model, n, dt, seed=7)
+    args = [a.double() for a in (d, w, e, q, h)]
+    nsub = torch.full((n,), 2, dtype=torch.int32, device="cuda")
+    check(model.substep_cap > 0 and int(dt / model.substep_cap) == 2,
+          "phase 4 must substep")
+    with torch.inference_mode():
+        out_k = cm.solve_staggered_cm_core(model, dt, *args, nsub)
+        stage = dc.dogleg_stage
+        dc.dogleg_stage = dc.dogleg_stage_reference
+        try:
+            out_r = cm.solve_staggered_cm_core(model, dt, *args, nsub)
+        finally:
+            dc.dogleg_stage = stage
+    torch.cuda.synchronize()
+    check(bool(out_k[4].all()) and bool(out_r[4].all()),
+          "staggered solve did not converge everywhere")
+    dx = float((out_k[0] - out_r[0]).abs().max())
+    dh = float(((out_k[1] - out_r[1]) / out_r[1]).abs().max())
+    check(dx <= 5e-9, f"polished x differs by {dx:.3e} > 5e-9")
+    check(dh <= 1e-8, f"hardness differs by rel {dh:.3e} > 1e-8")
+    log(f"[4 staggered {n}, nsub 2] max|dx| {dx:.3e}, max rel dh {dh:.3e}")
+
+
+def run_case(ncuts, dts, device, workdir):
+    from exaconstit_tpu_torch.cases import write_voce_case
+    from exaconstit_tpu_torch.driver import run_simulation
+    toml = write_voce_case(os.path.join(workdir, "case"), ncuts, dts,
+                           ngrains=500, seed=0)
+    run_dir = os.path.join(workdir, f"run_{device}")
+    os.makedirs(run_dir)
+    sim = run_simulation(toml, workdir=run_dir, verbose=False,
+                         device=device)
+    stress = np.loadtxt(os.path.join(run_dir, "avg_stress.txt"), ndmin=2)
+    return sim, stress
+
+
+def phase_main(workdir):
+    from exaconstit_tpu_torch.solvers.dogleg_cuda import KERNEL
+    torch.cuda.reset_peak_memory_stats()
+    KERNEL.launches = 0
+    t0 = time.perf_counter()
+    sim, stress = run_case((32, 32, 32), MAIN_DTS, "cuda", workdir)
+    wall = time.perf_counter() - t0
+    launches = KERNEL.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(stress.shape == (len(MAIN_DTS), 6), f"stress rows {stress.shape}")
+    check(np.isfinite(stress).all(), "average stress is not finite")
+    check(launches > 0, "the main path never launched the dogleg kernel")
+    for k, (st, secs) in enumerate(zip(sim.step_stats, sim.step_times)):
+        kr = st["krylov_iters"]
+        retry = (f"first solve failed after NR {st['first_nr']}, "
+                 f"{st['subdivided']} sub-solves, the last: "
+                 if st["subdivided"] > 1 else "")
+        log(f"[5 main 32^3] step {k + 1} dt {MAIN_DTS[k]}: {secs:.2f} s, "
+            f"{retry}NR {st['nr_iters']}, Krylov/NR {kr} "
+            f"(mean {np.mean(kr) if kr else 0:.1f}), "
+            f"szz {stress[k, 2]:.6g}")
+    # z strain rate 1e-3 / s on a unit cube
+    slopes = np.diff(np.concatenate([[0.0], stress[:, 2]])) / (
+        np.asarray(MAIN_DTS) * 1e-3)
+    check(slopes[-1] < 0.5 * slopes[0],
+          f"no plastic flow: dszz/deps {slopes[0]:.4g} -> {slopes[-1]:.4g}")
+    log(f"[5 main 32^3] {sim.system.npts} points, precond "
+        f"{sim.system.precond_kind}, wall {wall:.2f} s, dszz/deps "
+        f"{slopes.round(3).tolist()} GPa, kernel launches {launches}, peak "
+        f"memory {peak / 2**30:.3f} GiB")
+    return launches
+
+
+def phase_cpu_vs_cuda(workdir):
+    _, s_gpu = run_case((4, 4, 4), MAIN_DTS[:2], "cuda",
+                        os.path.join(workdir, "gpu"))
+    _, s_cpu = run_case((4, 4, 4), MAIN_DTS[:2], "cpu",
+                        os.path.join(workdir, "cpu"))
+    rel = float(np.max(np.abs(s_gpu - s_cpu)) / np.max(np.abs(s_cpu)))
+    check(rel <= 1e-6, f"CUDA and CPU average stress differ by rel {rel:.3e}")
+    log(f"[6 cuda vs cpu 4^3, 2 steps] max rel diff {rel:.3e}")
+
+
+def main():
+    t_start = time.perf_counter()
+    try:
+        phase_device()
+        from exaconstit_tpu_torch.cases import VOCE_PROPS
+        from exaconstit_tpu_torch.config.options import (ExaOptions,
+                                                         MechType, SlipType,
+                                                         XtalType)
+        from exaconstit_tpu_torch.models.ecmech import build_model
+        opt = ExaOptions()
+        opt.mech_type = MechType.EXACMECH
+        opt.xtal_type = XtalType.FCC
+        opt.slip_type = SlipType.POWERVOCE
+        model = build_model(opt, VOCE_PROPS).evptn
+        phase_build()
+        stage = phase_stage(model)
+        phase_staggered(model)
+        with tempfile.TemporaryDirectory() as tmp:
+            launches = phase_main(os.path.join(tmp, "main"))
+            phase_cpu_vs_cuda(tmp)
+    except SmokeFailure as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
+        return 1
+    big = stage[STAGE_SIZES[0]]
+    print(json.dumps({"kernels": [{
+        "name": "dogleg_voce_f32", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": TPU_KERNEL, "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in stage.values()),
+        "ms": big["ms"], "plain_ms": big["plain_ms"]}]}))
+    log(f"[7 total] {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

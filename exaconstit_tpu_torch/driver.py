@@ -1,0 +1,628 @@
+"""System driver: time stepping, Newton-Krylov solves, BCs, outputs.
+
+Port of ``exaconstit_tpu.driver`` for one device on a structured voxel
+mesh: the component-major EA path with the strided gather/scatter-add,
+the f32 EA block build for the mixed-precision (Voce) models, PCG with
+the GMG V-cycle (or Jacobi) inside mixed-precision iterative
+refinement, and the reference's host-side control flow: Newton with the
+3-point line-search fallback (NR) or always line-searching (NRLS), the
+BC-change corrector (SolveInit), custom or fixed dt with the
+subdivide retry, and the volume-averaged stress file.
+
+Everything runs eagerly; each Newton iteration, PCG iteration and
+dogleg iteration reads its stop test on the host.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+
+import numpy as np
+import torch
+
+from . import set_precision_policy
+from .config.options import (Assembly, ExaOptions, IntegrationType,
+                             KrylovSolver, MechType, MeshType, NLSolver,
+                             OriType, parse_options)
+from .fem import operators as ops
+from .fem.geometry import (adjugate_3x3_cm, det_3x3_cm, grad_calc_cm,
+                           jacobians_cm)
+from .fem.space import FESpace, StructuredMap
+from .mesh.voxel import HexMesh, make_cartesian_mesh
+from .models.ecmech import ECMechModel, build_model
+from .solvers import gmg
+from .solvers.krylov import pcg_refined
+
+# ----------------------------------------------------------------------------
+# Boundary conditions
+# ----------------------------------------------------------------------------
+
+_COMPONENTS = {
+    0: (False, False, False), 1: (True, False, False),
+    2: (False, True, False), 3: (False, False, True),
+    4: (True, True, False), 5: (False, True, True),
+    6: (True, False, True), 7: (True, True, True),
+}
+
+
+@dataclasses.dataclass
+class StepBCs:
+    """Resolved boundary conditions for one BC epoch (update step)."""
+
+    ess_mask: np.ndarray  # (nnodes, 3) bool: all constrained dofs
+    vel_nodes: np.ndarray  # node ids on active velocity-BC attributes
+    vel_values: np.ndarray  # (len(vel_nodes), 3) scale*essVel
+    vgrad_mask: np.ndarray  # (nnodes, 3) bool: velocity-gradient BC dofs
+    vgrad: np.ndarray  # (3, 3)
+    has_vel: bool
+    has_vgrad: bool
+
+
+def resolve_step_bcs(opt: ExaOptions, fes: FESpace, step: int) -> StepBCs:
+    """BCManager::updateBCData semantics (reference driver.py:67-114)."""
+    active = {}
+    for i, c in zip(opt.map_ess_id["total"][step],
+                    opt.map_ess_comp["total"][step]):
+        if c != 0:
+            cur = active.get(i, (False, False, False))
+            active[i] = tuple(a or b for a, b in
+                              zip(cur, _COMPONENTS[abs(c)]))
+    ess_mask = fes.ess_mask(active)
+
+    vals_v = opt.map_ess_vel.get(step, [])
+    node_vals = {}
+    for i, (attr, c) in enumerate(zip(opt.map_ess_id["ess_vel"][step],
+                                      opt.map_ess_comp["ess_vel"][step])):
+        if c == 0:
+            continue
+        scale = np.array(_COMPONENTS[c], dtype=float)
+        vel = np.array(vals_v[3 * i:3 * i + 3], dtype=float)
+        for n in fes.mesh.bdr_nodes.get(int(attr), []):
+            node_vals[int(n)] = vel * scale
+    if node_vals:
+        vel_nodes = np.array(sorted(node_vals), dtype=np.int32)
+        vel_values = np.stack([node_vals[int(n)] for n in vel_nodes])
+    else:
+        vel_nodes = np.zeros(0, dtype=np.int32)
+        vel_values = np.zeros((0, 3))
+
+    active_g = {}
+    for attr, c in zip(opt.map_ess_id["ess_vgrad"][step],
+                       opt.map_ess_comp["ess_vgrad"][step]):
+        if c != 0:
+            cur = active_g.get(attr, (False, False, False))
+            active_g[attr] = tuple(a or b for a, b in
+                                   zip(cur, _COMPONENTS[c]))
+    flat = opt.map_ess_vgrad.get(step, [])
+    vgrad = np.array(flat, dtype=float).reshape(3, 3) if len(flat) == 9 \
+        else np.zeros((3, 3))
+    return StepBCs(ess_mask=ess_mask, vel_nodes=vel_nodes,
+                   vel_values=vel_values, vgrad_mask=fes.ess_mask(active_g),
+                   vgrad=vgrad, has_vel=len(vel_nodes) > 0,
+                   has_vgrad=bool(active_g))
+
+
+# ----------------------------------------------------------------------------
+# The mechanics system
+# ----------------------------------------------------------------------------
+
+
+class MechSystem:
+    """FE space, material model and the per-iteration compute on one
+    device, component-major: nodal vectors flat (3*nn,) component planes,
+    quadrature-point fields (k, nq*ne) with point index q*ne + e.
+
+    ``ea_asm_f32`` builds the 24x24 EA blocks in f32 (default: when the
+    model solves its points in mixed precision, as the reference does
+    for Voce); the Newton residual stays f64.  The preconditioner is
+    ``opt.krylov_precond``: "auto" takes GMG where the grid coarsens,
+    else Jacobi."""
+
+    def __init__(self, opt: ExaOptions, mesh: HexMesh, model: ECMechModel,
+                 device="cpu", ea_asm_f32=None):
+        if mesh.structure is None:
+            raise NotImplementedError(
+                "only structured voxel meshes are ported (the index-based "
+                "scatter is not)")
+        if opt.assembly == Assembly.PA or \
+                opt.integ_type == IntegrationType.BBAR:
+            raise NotImplementedError("PA and BBar are not ported yet")
+        if opt.solver != KrylovSolver.PCG:
+            raise NotImplementedError("only the PCG Krylov solver is ported")
+        self.opt = opt
+        self.model = model
+        self.device = torch.device(device)
+        self.fes = FESpace.create(mesh)
+        self.smap = StructuredMap(mesh.structure, mesh.order)
+        f64 = torch.float64
+        self.dshape = torch.as_tensor(self.fes.ref.dshape, dtype=f64,
+                                      device=self.device)
+        self.qwts = torch.as_tensor(self.fes.ref.qwts, dtype=f64,
+                                    device=self.device)
+        self.nn = self.fes.num_nodes
+        self.ne = self.fes.num_elems
+        self.nq = self.fes.nqpts
+        self.npts = self.ne * self.nq
+        self.ea_asm_f32 = (model.evptn.mixed_precision if ea_asm_f32 is None
+                           else bool(ea_asm_f32))
+        self.gmg_meta = None
+        kind = opt.krylov_precond
+        if kind in ("gmg", "auto") and self.fes.ref.nnodes == 8:
+            meta = gmg.GMGMeta(mesh.structure)
+            if meta.usable:
+                self.gmg_meta = meta
+            elif kind == "gmg":
+                print("gmg preconditioner unavailable (grid does not "
+                      "coarsen); using Jacobi")
+        elif kind == "gmg":
+            print("gmg preconditioner requires an order-1 mesh; using "
+                  "Jacobi")
+        self.precond_kind = "gmg" if self.gmg_meta is not None else "jacobi"
+        self.last_newton_stats = {}
+
+    # -- layout adapters (host point-major <-> device component-major) -----
+
+    def to_node(self, arr):
+        """Host (nn, 3) nodal field -> flat (3*nn,) f64 device vector."""
+        return torch.as_tensor(np.asarray(arr).T.reshape(-1),
+                               dtype=torch.float64, device=self.device)
+
+    def from_node(self, dev):
+        return dev.cpu().numpy().reshape(3, -1).T
+
+    def to_ess(self, mask):
+        return torch.as_tensor(np.asarray(mask).T.reshape(-1),
+                               device=self.device)
+
+    def to_state(self, pm):
+        """Host (ne, nq, k) qpt field -> (k, nq*ne) device tensor."""
+        a = np.asarray(pm)
+        return torch.as_tensor(a.transpose(2, 1, 0).reshape(a.shape[2], -1),
+                               dtype=torch.float64, device=self.device)
+
+    def from_state(self, dev):
+        a = dev.cpu().numpy()
+        return a.reshape(a.shape[0], self.nq, self.ne).transpose(2, 1, 0)
+
+    def _ess_flat(self, ess_mask):
+        if torch.is_tensor(ess_mask) and ess_mask.ndim == 1:
+            return ess_mask
+        return self.to_ess(ess_mask)
+
+    def compute_nsub(self, dt):
+        """Uniform substep count, frozen for the whole time step."""
+        return self.model.substep_counts(dt) or 1
+
+    # -- per-iteration compute ---------------------------------------------
+
+    def _vgrad(self, el_x, el_v):
+        J = jacobians_cm(el_x, self.dshape)
+        L = grad_calc_cm(el_v, self.dshape, adjugate_3x3_cm(J), det_3x3_cm(J))
+        return L.reshape(3, 3, self.npts)
+
+    def setup(self, v, x_beg, state, dt, ess, advance_coords, nsub, x_warm,
+              warm_ok):
+        """Residual, EA blocks, diagonal, stress, end state and the
+        point-solve solution at velocity iterate v."""
+        x_end = x_beg + dt * v if advance_coords else x_beg
+        el_x = self.smap.gather(x_end)
+        el_v = self.smap.gather(v)
+        stress, state_end, c6, x_sol = self.model.model_setup_cm(
+            dt, self._vgrad(el_x, el_v), state, nsub=nsub, x_warm=x_warm,
+            warm_ok=warm_ok, with_solution=True)
+        stress_q = stress.reshape(6, self.nq, self.ne)
+        c6_q = c6.reshape(6, 6, self.nq, self.ne)
+        force = ops.residual_force_cm(el_x, self.dshape, self.qwts, stress_q)
+        nen = self.fes.ref.nnodes
+        if self.ea_asm_f32 and el_x.dtype == torch.float64:
+            f32 = torch.float32
+            k_cm = ops.assemble_ea_gradient_cm(
+                el_x.to(f32), self.dshape.to(f32), self.qwts.to(f32),
+                c6_q.to(f32), dt)
+            dloc = ops.ea_diagonal_cm(k_cm, nen).to(el_x.dtype)
+        else:
+            k_cm = ops.assemble_ea_gradient_cm(el_x, self.dshape, self.qwts,
+                                               c6_q, dt)
+            dloc = ops.ea_diagonal_cm(k_cm, nen)
+        r = torch.where(ess, 0.0, self.smap.scatter_add(force))
+        diag = torch.where(ess, 1.0, self.smap.scatter_add(dloc))
+        return r, k_cm, diag, stress, state_end, x_sol
+
+    def residual_only(self, v, x_beg, state, dt, ess, nsub, x_warm,
+                      warm_ok):
+        el_x = self.smap.gather(x_beg + dt * v)
+        el_v = self.smap.gather(v)
+        stress, _, _ = self.model.model_setup_cm(
+            dt, self._vgrad(el_x, el_v), state, compute_tangent=False,
+            nsub=nsub, x_warm=x_warm, warm_ok=warm_ok)
+        force = ops.residual_force_cm(el_x, self.dshape, self.qwts,
+                                      stress.reshape(6, self.nq, self.ne))
+        return torch.where(ess, 0.0, self.smap.scatter_add(force))
+
+    def apply_k(self, k_data, x):
+        """K x with the EA blocks (promoted to x's dtype)."""
+        el_y = ops.apply_ea_gradient_cm(k_data.to(x.dtype),
+                                        self.smap.gather(x))
+        return self.smap.scatter_add(el_y)
+
+    def grad_matvec(self, k_data, x, ess):
+        """y = K x with essential-dof identity rows and columns."""
+        y = self.apply_k(k_data, torch.where(ess, 0.0, x))
+        return torch.where(ess, x, y)
+
+    def krylov_solve(self, k_data, diag, b, ess):
+        """Mixed-precision PCG (f32 inner, f64 replay) with the GMG
+        V-cycle or Jacobi.  Returns (x, iters, converged, rel_red)."""
+        opt = self.opt
+        f32 = torch.float32
+        k32 = k_data.to(f32)
+        dinv = 1.0 / diag
+        dinv32 = dinv.to(f32)
+
+        def matvec(x):
+            return self.grad_matvec(k_data, x, ess)
+
+        def matvec32(x):
+            return self.grad_matvec(k32, x, ess)
+
+        def precond(v):
+            return dinv * v
+
+        def precond32(v):
+            return dinv32 * v
+
+        if self.gmg_meta is not None:
+            levels = gmg.build_hierarchy(self.gmg_meta, k32, ess, matvec32,
+                                         diag.to(f32))
+            cd = self.gmg_meta.coarse_dense
+
+            def precond32(v):
+                return gmg.v_cycle(levels, v, coarse_dense=cd)
+
+            def precond(v):
+                return gmg.v_cycle(levels, v.to(f32),
+                                   coarse_dense=cd).to(b.dtype)
+
+        return pcg_refined(matvec, precond, matvec32, precond32, b,
+                           opt.krylov_rel_tol, opt.krylov_abs_tol,
+                           opt.krylov_iter)
+
+    def vol_avg(self, values_q, el_x):
+        """Volume-weighted average of a (k, nq, ne) field."""
+        wts = ops.quad_point_volumes_cm(el_x, self.dshape, self.qwts)
+        return torch.einsum("qe,kqe->k", wts, values_q) / torch.sum(wts)
+
+    # -- Newton solve ---------------------------------------------------------
+
+    def newton_solve(self, v, x_beg, state, dt, ess_mask, verbose=True):
+        """Newton-Krylov with quadratic line-search safeguarding.
+
+        NR takes the full step and falls back to the 3-point quadratic
+        line search when the step fails to halve the residual; NRLS
+        always line-searches.  The converged point-solve solution of the
+        last setup warm-starts the next one."""
+        opt = self.opt
+        ess = self._ess_flat(ess_mask)
+        nsub = self.compute_nsub(dt)
+        xw = torch.zeros((8, self.npts), dtype=state.dtype,
+                         device=self.device)
+        ok = False
+
+        def do_setup(v_it):
+            return self.setup(v_it, x_beg, state, dt, ess, True, nsub, xw,
+                              ok)
+
+        def do_resid(v_it):
+            return self.residual_only(v_it, x_beg, state, dt, ess, nsub, xw,
+                                      ok)
+
+        def norm(r):
+            return float(torch.linalg.vector_norm(r))
+
+        out = do_setup(v)
+        r, k_data, diag, stress, state_end = out[:5]
+        xw, ok = out[5], True
+        norm0 = nrm = norm(r)
+        norm_max = max(opt.newton_rel_tol * norm0, opt.newton_abs_tol)
+        it = 0
+        kiters, kconv, krelres = [], [], []
+        converged = False
+        always_ls = opt.nl_solver == NLSolver.NRLS
+        while np.isfinite(nrm):
+            if verbose:
+                print(f"  Newton iteration {it:2d} : ||r|| = {nrm:.6e}" +
+                      (f", ||r||/||r_0|| = {nrm / norm0:.6e}" if it else ""))
+            if nrm <= norm_max:
+                converged = True
+                break
+            if it >= opt.newton_iter:
+                break
+            c, kit, kdone, krel = self.krylov_solve(k_data, diag, r, ess)
+            kiters.append(int(kit))
+            kconv.append(bool(kdone))
+            krelres.append(float(krel))
+            q1 = nrm
+
+            def quad_ls():
+                q3 = norm(do_resid(v - c))
+                q2 = norm(do_resid(v - 0.5 * c))
+                denom = q1 - 2.0 * q2 + q3
+                eps = (3.0 * q1 - 4.0 * q2 + q3) / (4.0 * denom) \
+                    if denom != 0 else 1.0
+                if denom > 0 and 0 < eps < 1:
+                    return eps
+                if q3 < q1:
+                    return 1.0
+                return 0.05
+
+            # release this iteration's large arrays before the next setup
+            r = k_data = diag = stress = state_end = out = None
+            if always_ls:
+                v_new = v - quad_ls() * c
+                out = do_setup(v_new)
+            else:
+                v_new = v - c
+                out = do_setup(v_new)
+                q_full = norm(out[0])
+                if not np.isfinite(q_full) or q_full > 0.5 * q1:
+                    scale = quad_ls()
+                    if scale != 1.0:
+                        v_new = v - scale * c
+                        out = do_setup(v_new)
+            v = v_new
+            r, k_data, diag, stress, state_end = out[:5]
+            xw = out[5]
+            nrm = norm(r)
+            it += 1
+
+        self.last_newton_stats = {
+            "nr_iters": it, "krylov_iters": kiters,
+            "krylov_converged": kconv, "krylov_relres": krelres,
+            "norm0": norm0, "norm": nrm,
+        }
+        return v, stress, state_end, converged, it, nrm
+
+    def solve_init(self, v_prev, v_new, x_beg, state, dt, ess_mask):
+        """BC-change corrector (SystemDriver::SolveInit): one linear solve
+        for the jump in the essential velocities, geometry not advanced."""
+        ess = self._ess_flat(ess_mask)
+        delta = torch.where(ess, v_new - v_prev, 0.0)
+        xw = torch.zeros((8, self.npts), dtype=state.dtype,
+                         device=self.device)
+        r, k_data, diag = self.setup(v_prev, x_beg, state, dt, ess, False,
+                                     self.compute_nsub(dt), xw, False)[:3]
+        y = torch.where(ess, 0.0, self.apply_k(k_data, delta)) + r
+        c = self.krylov_solve(k_data, diag, y, ess)[0]
+        return v_prev - c
+
+
+# ----------------------------------------------------------------------------
+# Simulation driver (main time loop)
+# ----------------------------------------------------------------------------
+
+
+def _euler_to_quat(euler):
+    """Bunge ZXZ Euler angles (radians) -> quaternions."""
+    phi1, Phi, phi2 = euler[:, 0], euler[:, 1], euler[:, 2]
+    s, c = np.sin(Phi / 2), np.cos(Phi / 2)
+    sig, dlt = (phi1 + phi2) / 2, (phi1 - phi2) / 2
+    q = np.stack([c * np.cos(sig), s * np.cos(dlt), s * np.sin(dlt),
+                  c * np.sin(sig)], axis=1)
+    q[q[:, 0] < 0] *= -1
+    return q
+
+
+class Simulation:
+    def __init__(self, opt: ExaOptions, workdir: str | None = None,
+                 device="cpu"):
+        unported = [name for name, on in (
+            ("UMAT materials", opt.mech_type != MechType.EXACMECH),
+            ("mesh files", opt.mesh_type != MeshType.AUTO),
+            ("checkpoint/restart", opt.checkpoint_steps > 0 or opt.restart),
+            ("visualization output", opt.visit or opt.conduit
+             or opt.paraview or opt.adios2),
+            ("additional averages", opt.additional_avgs),
+            ("precision other than f64", opt.precision != "f64"),
+            ("automatic time stepping", opt.dt_auto),
+        ) if on]
+        if unported:
+            raise NotImplementedError("not ported yet: "
+                                      + ", ".join(unported))
+        self.opt = opt
+        self.workdir = workdir or os.getcwd()
+        gpath = opt.abspath(opt.grain_map)
+        gmap = np.loadtxt(gpath).reshape(-1) \
+            if opt.cp and os.path.exists(gpath) else None
+        self.mesh = make_cartesian_mesh(
+            opt.nxyz, opt.mxyz, order=opt.order, grain_map=gmap,
+            ref_levels=opt.ser_ref_levels + opt.par_ref_levels)
+        props = np.loadtxt(opt.abspath(opt.props_file)).reshape(-1)
+        if props.size != opt.nProps:
+            raise ValueError(f"props file has {props.size} values, expected "
+                             f"{opt.nProps}")
+        self.props = props
+        self.model = build_model(opt, props)
+        self.system = MechSystem(opt, self.mesh, self.model, device=device)
+        sysm = self.system
+        nq = sysm.nq
+
+        ori = np.loadtxt(opt.abspath(opt.ori_file)).reshape(-1)
+        if opt.ori_type == OriType.QUAT or (
+                opt.ori_type == OriType.CUSTOM
+                and opt.grain_custom_stride == 4
+                and opt.grain_statevar_offset == self.model.IND_QUATS):
+            quats = ori.reshape(opt.ngrains, 4)
+            quats = quats / np.linalg.norm(quats, axis=1, keepdims=True)
+        elif opt.ori_type == OriType.EULER:
+            quats = _euler_to_quat(ori.reshape(opt.ngrains, 3))
+        else:
+            raise ValueError(
+                "ExaCMech models require quaternion orientation data in the "
+                f"history quaternion slot; got ori_type={opt.ori_type} "
+                f"stride={opt.grain_custom_stride} "
+                f"loc={opt.grain_statevar_offset}")
+        grain_ids = self.mesh.elem_attr.astype(int) - 1
+        pt_quats = np.repeat(quats[grain_ids], nq, axis=0)
+        state0 = self.model.init_state(pt_quats).reshape(sysm.ne, nq, -1)
+        self.state = sysm.to_state(state0)
+        self.stress = torch.zeros((6, sysm.npts), dtype=torch.float64,
+                                  device=sysm.device)
+
+        self.x_ref = sysm.to_node(self.mesh.coords)
+        self.x_beg = self.x_ref
+        self.x_cur = self.x_ref
+        self.v = torch.zeros_like(self.x_ref)
+
+        if opt.dt_cust:
+            dts = np.loadtxt(opt.abspath(opt.dt_file)).reshape(-1)
+            if dts.size < opt.nsteps:
+                raise ValueError(f"{opt.dt_file} has {dts.size} steps, "
+                                 f"expected {opt.nsteps}")
+            self.cust_dt = dts[:opt.nsteps]
+            self.t_final = float(self.cust_dt.sum())
+            self.nsteps = opt.nsteps
+        else:
+            self.cust_dt = None
+            self.t_final = opt.t_final
+            self.nsteps = int(np.ceil(opt.t_final / opt.dt_min))
+
+        self.bc_steps = {s: resolve_step_bcs(opt, sysm.fes, s)
+                         for s in opt.updateStep}
+        self.update_steps = set(opt.updateStep)
+        self.cur_bcs = self.bc_steps[1]
+        self.step_times = []
+        self.step_stats = []
+
+    def update_velocity(self):
+        """Essential velocities (and velocity-gradient BCs) into v."""
+        bcs = self.cur_bcs
+        sysm = self.system
+        v = sysm.from_node(self.v).copy()
+        if bcs.has_vel:
+            v[bcs.vel_nodes] = bcs.vel_values
+        if bcs.has_vgrad:
+            x = sysm.from_node(self.x_cur)
+            origin = (np.asarray(self.opt.vgrad_origin)
+                      if self.opt.vgrad_origin_flag else x.min(axis=0))
+            v_full = (x - origin) @ bcs.vgrad.T
+            v[bcs.vgrad_mask] = v_full[bcs.vgrad_mask]
+        self.v = sysm.to_node(v)
+
+    def advance(self, ti, dt, verbose=True):
+        """One time step of size dt."""
+        sysm = self.system
+        x_sub = None
+        subdivided = 1
+        if ti in self.update_steps:
+            if verbose and ti != 1:
+                print(f"Changing boundary conditions this step: {ti}")
+            v_prev = self.v
+            self.cur_bcs = self.bc_steps[ti]
+            self.update_velocity()
+            self.v = sysm.solve_init(v_prev, self.v, self.x_beg, self.state,
+                                     dt, self.cur_bcs.ess_mask)
+        self.update_velocity()
+
+        v, stress, state_end, conv, nit, _ = sysm.newton_solve(
+            self.v, self.x_beg, self.state, dt, self.cur_bcs.ess_mask,
+            verbose)
+        if not conv:
+            # ExaConstit aborts here; as the JAX package does, subdivide
+            # the step and compose the sub-solves instead (essential velocities are rates, so
+            # x_end = x + sum_k (dt/n) v_k)
+            for nsub in (2, 4, 8):
+                if verbose:
+                    print(f"WARNING: Newton failed at dt={dt:g}; "
+                          f"retrying with {nsub} substeps")
+                got = self._solve_subdivided(dt, nsub, verbose)
+                if got is not None:
+                    v, stress, state_end, x_sub = got
+                    conv, subdivided = True, nsub
+                    break
+        if not conv:
+            raise RuntimeError("Newton Solver did not converge.")
+
+        # Newton and Krylov counts of the last solve, the first solve's
+        # NR count, and the number of sub-solves the step took
+        self.step_stats.append(dict(sysm.last_newton_stats, first_nr=nit,
+                                    subdivided=subdivided))
+        self.v = v
+        self.x_cur = x_sub if x_sub is not None else self.x_beg + dt * v
+        self.stress = stress
+        self.state = state_end
+        self.x_beg = self.x_cur
+
+    def _solve_subdivided(self, dt, nsub, verbose):
+        """One scheduled step as ``nsub`` composed sub-solves; commits
+        nothing, returns (v, stress, state_end, x_end) or None."""
+        sysm = self.system
+        v, x, state = self.v, self.x_beg, self.state
+        dts = dt / nsub
+        for _ in range(nsub):
+            v, stress, state_end, conv, _, _ = sysm.newton_solve(
+                v, x, state, dts, self.cur_bcs.ess_mask, verbose)
+            if not conv:
+                return None
+            x = x + dts * v
+            state = state_end
+        return v, stress, state, x
+
+    def _append_file(self, name, text):
+        with open(os.path.join(self.workdir, name), "a") as f:
+            f.write(text)
+
+    def average_stress(self):
+        """Volume-averaged Cauchy stress (svec) at the current step."""
+        sysm = self.system
+        el_x = sysm.smap.gather(self.x_cur)
+        return sysm.vol_avg(self.stress.reshape(6, sysm.nq, -1),
+                            el_x).cpu().numpy()
+
+    def write_averages(self):
+        self._append_file(self.opt.avg_stress_fname, " ".join(
+            f"{v:.6g}" for v in self.average_stress()) + "\n")
+
+    def run(self, verbose=True):
+        t = 0.0
+        ti = 1
+        while ti <= self.nsteps:
+            if self.cust_dt is not None:
+                dt = float(self.cust_dt[ti - 1])
+            else:
+                dt = min(self.opt.dt, self.t_final - t)
+            if verbose:
+                print(f"step {ti}, dt = {dt:.6g}")
+            t0 = time.perf_counter()
+            self.advance(ti, dt, verbose)
+            if self.system.device.type == "cuda":
+                torch.cuda.synchronize(self.system.device)
+            self.step_times.append(time.perf_counter() - t0)
+            t += dt
+            last = abs(t - self.t_final) <= abs(1e-3 * dt)
+            self.write_averages()
+            if verbose:
+                print(f"step {ti} done, t = {t:.6g} "
+                      f"({self.step_times[-1]:.2f}s)")
+            if last:
+                break
+            ti += 1
+        return t
+
+
+def default_device():
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+def run_simulation(toml_path: str, workdir: str | None = None,
+                   verbose: bool = True, device=None):
+    """Parse the options file and run the whole simulation on ``device``
+    (default: the card when there is one)."""
+    set_precision_policy()
+    opt = parse_options(toml_path)
+    with torch.inference_mode():
+        sim = Simulation(opt, workdir=workdir,
+                         device=device or default_device())
+        sim.run(verbose=verbose)
+    return sim

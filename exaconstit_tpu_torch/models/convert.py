@@ -1,0 +1,59 @@
+"""Carry a model and a state across from the JAX package's numpy arrays.
+
+The JAX package is not imported here: a caller that has both packages
+(a test, a migration script) flattens the reference model into the plain
+dict of numpy arrays and scalars that ``ecmech_from_reference`` reads:
+
+* ``elast.C_dev`` (5, 5), ``elast.bulk``;
+* ``slip.P`` (12, 5), ``slip.Q`` (12, 3);
+* ``kin.<field>`` for every ``VocePL`` field;
+* ``eos.<field>`` for every ``EosConst`` field;
+* ``solver_tol``, ``fast_tol``, ``refine_iters``, ``solver_max_iter``,
+  ``substep_cap``, ``max_substeps``, ``h_gd_blend``,
+  ``mixed_precision``, ``temp_k``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .ecmech import ECMechModel
+from .elasticity import Elasticity
+from .eos import EosConst
+from .evptn import EvptnModel
+from .kinetics import VocePL
+from .slip_geom import SlipGeom
+
+_INT_FIELDS = ("refine_iters", "solver_max_iter", "max_substeps")
+_FLOAT_FIELDS = ("solver_tol", "fast_tol", "substep_cap", "h_gd_blend")
+
+
+def _fields(cls, prefix, arrays):
+    return {f.name: arrays[f"{prefix}.{f.name}"]
+            for f in dataclasses.fields(cls)}
+
+
+def ecmech_from_reference(arrays: dict) -> ECMechModel:
+    """Build the port's model from the reference model's arrays."""
+    slip = SlipGeom(name="fcc12", P=np.asarray(arrays["slip.P"], float),
+                    Q=np.asarray(arrays["slip.Q"], float))
+    elast = Elasticity(C_dev=np.asarray(arrays["elast.C_dev"], float),
+                       bulk=arrays["elast.bulk"])
+    kin = VocePL(**_fields(VocePL, "kin", arrays))
+    eos = EosConst(**_fields(EosConst, "eos", arrays))
+    extra = {k: int(arrays[k]) for k in _INT_FIELDS}
+    extra.update({k: float(arrays[k]) for k in _FLOAT_FIELDS})
+    evptn = EvptnModel(slip=slip, elast=elast, kinetics=kin, eos=eos,
+                       mixed_precision=bool(arrays["mixed_precision"]),
+                       **extra)
+    return ECMechModel(evptn=evptn, temp_k=float(arrays["temp_k"]),
+                       nslip=slip.nslip, n_h=kin.n_h)
+
+
+def state_from_reference(state_cm, device="cpu") -> torch.Tensor:
+    """A component-major (nsv, npts) reference state as an f64 tensor."""
+    return torch.as_tensor(np.asarray(state_cm, dtype=np.float64),
+                           device=device)

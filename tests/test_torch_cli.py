@@ -1,0 +1,129 @@
+"""The PyTorch port's command line against the JAX package's, and the
+port's independence from JAX.
+
+Both CLIs run the same in-repo FCC Voce case (``exaconstit_tpu_torch.
+cases``: a 4^3 voxel mesh, Voronoi grains, uniaxial tension, 2 custom
+steps) written into ``tmp_path``, with the production defaults on both
+sides; their average-stress files agree at the Newton tolerance."""
+
+import ast
+import os
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from exaconstit_tpu import cli as J_CLI
+from exaconstit_tpu_torch import cli as T_CLI
+from exaconstit_tpu_torch.cases import write_voce_case
+
+PKG = Path(T_CLI.__file__).resolve().parent
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _run_cli(main, argv, rundir, monkeypatch):
+    rundir.mkdir()
+    monkeypatch.chdir(rundir)
+    assert main(argv) == 0
+    assert (rundir / "timing" / "time_solve.0.txt").exists()
+    return np.loadtxt(rundir / "avg_stress.txt", ndmin=2)
+
+
+def test_cli_matches_reference_cli(tmp_path, monkeypatch):
+    """Production defaults on both sides (f32 stage + f64 polish, f32 EA
+    build, PCG with mixed-precision refinement; the 4^3 grid does not
+    coarsen, so Jacobi): rel 1e-6, the Newton tolerance level."""
+    toml = write_voce_case(str(tmp_path / "case"), (4, 4, 4), (0.1, 0.2),
+                           ngrains=20, seed=0)
+    s_t = _run_cli(T_CLI.main, ["-opt", toml, "-q", "--device", "cpu"],
+                   tmp_path / "torch", monkeypatch)
+    s_j = _run_cli(J_CLI.main, ["-opt", toml, "-q"], tmp_path / "jax",
+                   monkeypatch)
+    assert s_t.shape == s_j.shape == (2, 6)
+    assert np.isfinite(s_t).all()
+    rel = np.max(np.abs(s_t - s_j)) / np.max(np.abs(s_j))
+    assert rel < 1e-6
+
+
+def _with_time_table(toml, table):
+    """A copy of the case's options file with another [Time] table."""
+    text = Path(toml).read_text()
+    start = text.index("[Time]")
+    end = text.index("[Visualizations]")
+    path = Path(toml).with_name("other_time.toml")
+    path.write_text(text[:start] + table + text[end:])
+    return str(path)
+
+
+def test_fixed_dt_matches_custom_schedule(tmp_path):
+    """[Time.Fixed] dt = 0.1 to t_final = 0.2 takes the same two steps
+    as the custom schedule (0.1, 0.1): the same stress, bit for bit.
+    Automatic time stepping is refused."""
+    from exaconstit_tpu_torch.driver import run_simulation
+    toml = write_voce_case(str(tmp_path / "case"), (2, 2, 2), (0.1, 0.1),
+                           ngrains=8, seed=1)
+    fixed = _with_time_table(
+        toml, "[Time]\n    [Time.Fixed]\n        dt = 0.1\n"
+        "        t_final = 0.2\n")
+    stress = []
+    for i, path in enumerate((toml, fixed)):
+        rundir = tmp_path / f"run{i}"
+        rundir.mkdir()
+        sim = run_simulation(path, workdir=str(rundir), verbose=False,
+                             device="cpu")
+        assert len(sim.step_times) == 2
+        stress.append(np.loadtxt(rundir / "avg_stress.txt"))
+    np.testing.assert_array_equal(stress[0], stress[1])
+    auto = _with_time_table(
+        toml, "[Time]\n    [Time.Auto]\n        dt_start = 0.1\n"
+        "        dt_min = 0.01\n        t_final = 0.2\n")
+    with pytest.raises(NotImplementedError, match="automatic time"):
+        run_simulation(auto, workdir=str(tmp_path), verbose=False,
+                       device="cpu")
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("banned", ["jax", "exaconstit_tpu"])
+def test_port_imports_no_jax(banned):
+    """The port and its chip smoke script import neither JAX nor the JAX
+    package, at any depth of any module."""
+    files = sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = [f"{f.relative_to(PKG.parent)}: {mod}" for f in files
+           for mod in _imported_modules(f)
+           if mod == banned or mod.startswith(banned + ".")]
+    assert not bad, bad
+    for f in files:
+        text = f.read_text()
+        assert "__import__(" not in text and "importlib" not in text, f
+
+
+def test_cases_voronoi_grain_map(tmp_path):
+    """The in-repo case: one grain id per element, every id in range, and
+    the same files from the same seed."""
+    a = write_voce_case(str(tmp_path / "a"), (6, 5, 4), (0.1,), ngrains=7,
+                        seed=3)
+    b = write_voce_case(str(tmp_path / "b"), (6, 5, 4), (0.1,), ngrains=7,
+                        seed=3)
+    ga = np.loadtxt(os.path.join(os.path.dirname(a), "grains.txt"))
+    gb = np.loadtxt(os.path.join(os.path.dirname(b), "grains.txt"))
+    assert ga.shape == (120,) and ga.min() >= 1 and ga.max() <= 7
+    np.testing.assert_array_equal(ga, gb)
+    q = np.loadtxt(os.path.join(os.path.dirname(a), "quats.ori"))
+    np.testing.assert_allclose(np.linalg.norm(q, axis=1), 1.0, rtol=1e-12)
