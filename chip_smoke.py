@@ -7,19 +7,28 @@ Phases, each printing a line; any failed check exits non-zero with no
 result line:
 
 1. device: the card's name and power limit (nvidia-smi), TF32 off;
-2. build: nvcc builds the dogleg kernel from csrc/ (register/spill
-   counts from -Xptxas -v);
+2. build: nvcc builds the dogleg kernel from csrc/; registers and spills
+   from -Xptxas -v, resident blocks per SM from the occupancy query (no
+   spills, and at least 16 resident warps per SM);
 3. the kernel against its plain PyTorch version on seeded inputs at
    884,736 points (a 48^3 mesh x 8 quadrature points) and 262,144
    (32^3): converged flags, solutions (atol 2e-5), residuals, inactive
-   lanes untouched, median times, iteration histogram;
+   lanes untouched, median times, iteration histogram, and the bound
+   (the larger of the operations the iteration counts need over the f32
+   peak and the bytes over the memory rate) with the share reached;
 4. the f64-polished staggered solve through the kernel against through
    the plain version, 262,144 points, 2 substeps (atol 5e-9);
 5. the main path: ``run_simulation`` on an in-repo 32^3 FCC Voce case
    (500 Voronoi grains, uniaxial tension, dt 0.1, 0.2, 0.5, 1.0) on the
    card, with the kernel's launch count reset just before and read just
    after; every step converges, stress is finite, and the hardening
-   slope drops below half the elastic one;
+   slope drops below half the elastic one.  Each launch records a CUDA
+   event pair around the kernel call alone (not the wrapper's output
+   allocations and counter fill) and its lanes' largest and summed
+   iteration counts on the
+   device; they are read once after the run: device ms per launch
+   (median, max), the launches in which some lane hit max_iter, and the
+   path's kernel time against its bound;
 6. the same case at 4^3 for 2 steps on the card and on the CPU (the
    plain versions there): average stress to rel 1e-6;
 7. a ``kernels`` JSON line; then the ``ok`` JSON line, last.
@@ -27,6 +36,7 @@ result line:
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -40,6 +50,10 @@ TOL, MAX_ITER = 1e-6, 200
 MAIN_DTS = (0.1, 0.2, 0.5, 1.0)
 TPU_KERNEL = "exaconstit_tpu/solvers/dogleg_pallas.py:211"
 KERNEL_SOURCE = "exaconstit_tpu_torch/csrc/dogleg_voce.cu"
+# NVIDIA H100 SXM data sheet: f32 outside the tensor cores, HBM3
+F32_OPS_PER_S = 67e12
+BYTES_PER_S = 3.35e12
+MIN_WARPS_PER_SM = 16
 
 
 class SmokeFailure(Exception):
@@ -55,19 +69,42 @@ def log(msg):
     print(msg, flush=True)
 
 
+def event_ms(fn):
+    """Device ms of one call of ``fn`` between two CUDA events."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1)
+
+
 def cuda_time_ms(fn, reps=3):
     """Median of ``reps`` timed calls (CUDA events) after one warm-up."""
     fn()
-    times = []
-    for _ in range(reps):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        fn()
-        t1.record()
-        torch.cuda.synchronize()
-        times.append(t0.elapsed_time(t1))
-    return float(np.median(times))
+    return float(np.median([event_ms(fn) for _ in range(reps)]))
+
+
+def bound(ops, nbytes):
+    """(least ms the card could take, what sets it) for ``ops`` f32
+    operations and ``nbytes`` moved."""
+    t_ops, t_bytes = ops / F32_OPS_PER_S, nbytes / BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def build_voce_model():
+    """The FCC power-law Voce point model of the in-repo case."""
+    from exaconstit_tpu_torch.cases import VOCE_PROPS
+    from exaconstit_tpu_torch.config.options import (ExaOptions, MechType,
+                                                     SlipType, XtalType)
+    from exaconstit_tpu_torch.models.ecmech import build_model
+    opt = ExaOptions()
+    opt.mech_type = MechType.EXACMECH
+    opt.xtal_type = XtalType.FCC
+    opt.slip_type = SlipType.POWERVOCE
+    return build_model(opt, VOCE_PROPS).evptn
 
 
 def stage_inputs(model, n, dt, seed):
@@ -129,8 +166,17 @@ def phase_build():
     ptxas = [ln.strip() for ln in build_log.splitlines()
              if "registers" in ln or "spill" in ln]
     log(f"[2 build] {secs:.2f} s -> {path.name}; " + " | ".join(ptxas))
-    KERNEL.lib()
-    return ptxas
+    info = KERNEL.build_info()
+    warps = info["blocks_per_sm"] * info["threads"] // 32
+    log(f"[2 build] {info['registers']} registers, {info['local_bytes']} "
+        f"local bytes per thread, {info['blocks_per_sm']} resident blocks "
+        f"of {info['threads']} threads per SM = {warps} warps per SM")
+    spills = [int(v) for ln in ptxas
+              for v in re.findall(r"(\d+) bytes spill", ln)]
+    check(spills and not any(spills), f"the kernel spills: {ptxas}")
+    check(warps >= MIN_WARPS_PER_SM,
+          f"{warps} resident warps per SM < {MIN_WARPS_PER_SM}")
+    return info
 
 
 def phase_stage(model):
@@ -178,16 +224,23 @@ def phase_stage(model):
               "the kernel touched an inactive lane")
         check(bool(ok_k[inactive].all()) and int(it_k[inactive].max()) == 0,
               "inactive lanes must read converged after 0 iterations")
-        ms_k = cuda_time_ms(kernel)
+        ms_k = cuda_time_ms(kernel, reps=7)
         ms_r = cuda_time_ms(plain)
         hist = torch.bincount(it_k[active].long()).cpu().tolist()
+        iters_sum = int(it_k.sum())
+        ops, nbytes = dc.stage_work(n, iters_sum)
+        bound_ms, bound_by = bound(ops, nbytes)
         log(f"[3 stage {n}] kernel {ms_k:.3f} ms, plain {ms_r:.3f} ms, "
             f"max|dx| {err:.3e}, max f64 |r| {rmax:.3e} "
             f"({int((rn >= TOL).sum())} lanes in [tol, 1.01 tol)), "
             f"converged {int(ok_k.sum())}/{n}, flags differ {len(differ)}")
         log(f"[3 stage {n}] iteration histogram (count per iters "
             f"0..{len(hist) - 1}): {hist}")
-        results[n] = dict(ms=ms_k, plain_ms=ms_r, max_abs_err=err)
+        log(f"[3 stage {n}] bound {bound_ms:.4f} ms, set by {bound_by} "
+            f"({ops:.4e} f32 operations for {iters_sum} iterations, "
+            f"{nbytes:.4e} bytes); share of bound {bound_ms / ms_k:.4f}")
+        results[n] = dict(ms=ms_k, plain_ms=ms_r, max_abs_err=err,
+                          bound_ms=bound_ms, bound_by=bound_by)
     return results
 
 
@@ -232,15 +285,63 @@ def run_case(ncuts, dts, device, workdir):
     return sim, stress
 
 
+class LaunchRecorder:
+    """Wraps ``KERNEL.run`` for one run: per launch, a CUDA event pair
+    around the kernel call and its lanes' largest and summed iteration
+    counts, all kept on the device until ``read`` (no host
+    synchronisation)."""
+
+    def __init__(self, kernel):
+        self.kernel = kernel
+        self.events, self.it_max, self.it_sum, self.points = [], [], [], []
+        self.max_iter = None
+
+    def __enter__(self):
+        inner = self.kernel.run
+
+        def run(params, inputs, outputs, counter):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            inner(params, inputs, outputs, counter)
+            t1.record()
+            iters = outputs[3]
+            self.events.append((t0, t1))
+            self.it_max.append(iters.max())
+            self.it_sum.append(iters.sum())
+            self.points.append(iters.numel())
+            self.max_iter = int(params[-1:].view(np.int32)[0])
+
+        self.kernel.run = run
+        return self
+
+    def __exit__(self, *exc):
+        del self.kernel.run  # back to the class's method
+
+    def read(self):
+        """(ms per launch, largest iters per launch, summed iters per
+        launch) as numpy arrays, after one synchronisation."""
+        torch.cuda.synchronize()
+        if not self.events:
+            return np.zeros(0), np.zeros(0, int), np.zeros(0, int)
+        ms = np.array([a.elapsed_time(b) for a, b in self.events])
+        return (ms, torch.stack(self.it_max).cpu().numpy(),
+                torch.stack(self.it_sum).cpu().numpy())
+
+
 def phase_main(workdir):
-    from exaconstit_tpu_torch.solvers.dogleg_cuda import KERNEL
+    from exaconstit_tpu_torch.solvers import dogleg_cuda as dc
+    KERNEL = dc.KERNEL
     torch.cuda.reset_peak_memory_stats()
-    KERNEL.launches = 0
-    t0 = time.perf_counter()
-    sim, stress = run_case((32, 32, 32), MAIN_DTS, "cuda", workdir)
-    wall = time.perf_counter() - t0
-    launches = KERNEL.launches
+    with LaunchRecorder(KERNEL) as rec:
+        KERNEL.launches = 0
+        t0 = time.perf_counter()
+        sim, stress = run_case((32, 32, 32), MAIN_DTS, "cuda", workdir)
+        wall = time.perf_counter() - t0
+        launches = KERNEL.launches
     peak = torch.cuda.max_memory_allocated()
+    ms, it_max, it_sum = rec.read()
+    check(len(ms) == launches, f"{len(ms)} recorded launches != {launches}")
     check(stress.shape == (len(MAIN_DTS), 6), f"stress rows {stress.shape}")
     check(np.isfinite(stress).all(), "average stress is not finite")
     check(launches > 0, "the main path never launched the dogleg kernel")
@@ -262,7 +363,29 @@ def phase_main(workdir):
         f"{sim.system.precond_kind}, wall {wall:.2f} s, dszz/deps "
         f"{slopes.round(3).tolist()} GPa, kernel launches {launches}, peak "
         f"memory {peak / 2**30:.3f} GiB")
-    return launches
+    ops, nbytes = zip(*(dc.stage_work(n, int(s))
+                        for n, s in zip(rec.points, it_sum)))
+    path_bound, path_by = bound(sum(ops), sum(nbytes))
+    tail = it_max >= rec.max_iter
+    hit = int(tail.sum())
+    log(f"[5 main 32^3] kernel device ms per launch: median "
+        f"{float(np.median(ms)):.4f}, max {float(ms.max()):.4f}, total "
+        f"{float(ms.sum()):.2f}; launches with a lane at max_iter "
+        f"{rec.max_iter}: {hit} of {launches}; mean iterations per point "
+        f"{float(it_sum.sum()) / sum(rec.points):.3f}; path bound "
+        f"{path_bound:.2f} ms ({path_by}), share {path_bound / ms.sum():.4f}")
+    slow = int(ms.argmax())
+
+    def median(a):
+        return float(np.median(a)) if a.size else float("nan")
+
+    log(f"[5 main 32^3] slowest launch: {float(ms[slow]):.4f} ms, largest "
+        f"iterations {int(it_max[slow])}, mean "
+        f"{it_sum[slow] / rec.points[slow]:.3f}; median ms of launches "
+        f"with / without a lane at max_iter: {median(ms[tail]):.4f} / "
+        f"{median(ms[~tail]):.4f}")
+    return dict(launches=launches, median_ms=float(np.median(ms)),
+                max_ms=float(ms.max()))
 
 
 def phase_cpu_vs_cuda(workdir):
@@ -279,31 +402,29 @@ def main():
     t_start = time.perf_counter()
     try:
         phase_device()
-        from exaconstit_tpu_torch.cases import VOCE_PROPS
-        from exaconstit_tpu_torch.config.options import (ExaOptions,
-                                                         MechType, SlipType,
-                                                         XtalType)
-        from exaconstit_tpu_torch.models.ecmech import build_model
-        opt = ExaOptions()
-        opt.mech_type = MechType.EXACMECH
-        opt.xtal_type = XtalType.FCC
-        opt.slip_type = SlipType.POWERVOCE
-        model = build_model(opt, VOCE_PROPS).evptn
+        model = build_voce_model()
         phase_build()
         stage = phase_stage(model)
         phase_staggered(model)
         with tempfile.TemporaryDirectory() as tmp:
-            launches = phase_main(os.path.join(tmp, "main"))
+            main_path = phase_main(os.path.join(tmp, "main"))
             phase_cpu_vs_cuda(tmp)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
     big = stage[STAGE_SIZES[0]]
+    # ms, plain_ms and the bound at the larger stage size; no single
+    # PyTorch call computes this solve, so library_ms is null
     print(json.dumps({"kernels": [{
         "name": "dogleg_voce_f32", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": TPU_KERNEL, "launches": launches,
+        "replaces": TPU_KERNEL, "launches": main_path["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in stage.values()),
-        "ms": big["ms"], "plain_ms": big["plain_ms"]}]}))
+        "ms": big["ms"], "plain_ms": big["plain_ms"],
+        "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
+        "share_of_bound": big["bound_ms"] / big["ms"],
+        "library_ms": None,
+        "path_ms_per_launch_median": main_path["median_ms"],
+        "path_ms_per_launch_max": main_path["max_ms"]}]}))
     log(f"[7 total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Command line: ``python -m exaconstit_tpu_torch.cli -opt file.toml``.
 
 The reference binary's interface (``mechanics -opt options.toml``) plus
-``--device`` (default: the card when there is one, else the CPU).
+``--device`` (default: the card, ``cuda``; with no card present the run
+stops with an error unless ``--device cpu`` is given).
 """
 
 from __future__ import annotations
@@ -19,8 +20,9 @@ def main(argv=None):
     parser.add_argument("-opt", "--options", dest="opt", required=True,
                         help="TOML options file to use")
     parser.add_argument("-q", "--quiet", action="store_true")
-    parser.add_argument("--device", default=None,
-                        help="torch device, e.g. cuda or cpu")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default cuda; cpu runs on the "
+                             "CPU)")
     args = parser.parse_args(argv)
 
     from .driver import run_simulation

@@ -109,6 +109,17 @@ def resolve_step_bcs(opt: ExaOptions, fes: FESpace, step: int) -> StepBCs:
 # ----------------------------------------------------------------------------
 
 
+def resolve_device(device) -> torch.device:
+    """The device to run on; a CUDA device with no card present raises
+    rather than running on the CPU (pass ``device="cpu"`` for that)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} requested but torch finds no CUDA device; "
+            "pass device='cpu' (CLI: --device cpu) to run on the CPU")
+    return device
+
+
 class MechSystem:
     """FE space, material model and the per-iteration compute on one
     device, component-major: nodal vectors flat (3*nn,) component planes,
@@ -121,7 +132,8 @@ class MechSystem:
     else Jacobi."""
 
     def __init__(self, opt: ExaOptions, mesh: HexMesh, model: ECMechModel,
-                 device="cpu", ea_asm_f32=None):
+                 device="cuda", ea_asm_f32=None):
+        self.device = resolve_device(device)
         if mesh.structure is None:
             raise NotImplementedError(
                 "only structured voxel meshes are ported (the index-based "
@@ -133,7 +145,6 @@ class MechSystem:
             raise NotImplementedError("only the PCG Krylov solver is ported")
         self.opt = opt
         self.model = model
-        self.device = torch.device(device)
         self.fes = FESpace.create(mesh)
         self.smap = StructuredMap(mesh.structure, mesh.order)
         f64 = torch.float64
@@ -416,7 +427,8 @@ def _euler_to_quat(euler):
 
 class Simulation:
     def __init__(self, opt: ExaOptions, workdir: str | None = None,
-                 device="cpu"):
+                 device="cuda"):
+        device = resolve_device(device)
         unported = [name for name, on in (
             ("UMAT materials", opt.mech_type != MechType.EXACMECH),
             ("mesh files", opt.mesh_type != MeshType.AUTO),
@@ -611,18 +623,13 @@ class Simulation:
         return t
 
 
-def default_device():
-    return "cuda" if torch.cuda.is_available() else "cpu"
-
-
 def run_simulation(toml_path: str, workdir: str | None = None,
-                   verbose: bool = True, device=None):
+                   verbose: bool = True, device="cuda"):
     """Parse the options file and run the whole simulation on ``device``
-    (default: the card when there is one)."""
+    (default: the card; ``device="cpu"`` runs on the CPU)."""
     set_precision_policy()
     opt = parse_options(toml_path)
     with torch.inference_mode():
-        sim = Simulation(opt, workdir=workdir,
-                         device=device or default_device())
+        sim = Simulation(opt, workdir=workdir, device=device)
         sim.run(verbose=verbose)
     return sim

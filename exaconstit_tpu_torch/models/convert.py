@@ -53,7 +53,8 @@ def ecmech_from_reference(arrays: dict) -> ECMechModel:
                        nslip=slip.nslip, n_h=kin.n_h)
 
 
-def state_from_reference(state_cm, device="cpu") -> torch.Tensor:
-    """A component-major (nsv, npts) reference state as an f64 tensor."""
+def state_from_reference(state_cm, device) -> torch.Tensor:
+    """A component-major (nsv, npts) reference state as an f64 tensor on
+    the caller's ``device``."""
     return torch.as_tensor(np.asarray(state_cm, dtype=np.float64),
                            device=device)

@@ -34,7 +34,46 @@ BUILD_DIR = PKG_DIR / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 NSLIP = 12
-_PARAM_FLOATS = NSLIP * 5 + 5 * NSLIP + 3 * NSLIP + 25 * NSLIP + 15 * NSLIP
+_PARAM_FLOATS = NSLIP * 5 + 8 * NSLIP
+# dogleg_voce_f32's C arguments: 12 tensors (7 f32 inputs, the active
+# mask, 4 outputs), the point counter, N, the params struct, the stream
+ARGTYPES = ([ctypes.c_void_p] * 13
+            + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+
+# The f32 operations the stage needs per point (FMA = 2; each division,
+# square root, logf, expf, sinf or cosf = 1), counted from the serial
+# algorithm in csrc/dogleg_voce.cu: the kernel's thread groups repeat
+# some of them on every lane, which this count leaves out.
+OPS_RESJAC = {
+    "expmap and quaternion product": 41,
+    "rotation matrix": 40,
+    "lattice rates R^T D R, R^T w, vecd": 117,
+    "12 slip rates and slopes": 12 * 24,
+    "residual": 5 * 12 * 2 + 3 * 12 * 2 + 5 * 4 + 3 * 3,
+    "kinetics Jacobian blocks (40 entries x 12 slips)": 40 * 12 * 2 + 40 * 2,
+    "kinematics Jacobian blocks": 3 * (18 + 12 + 5) + 6,
+}
+OPS_STEP = {
+    "row equilibration": 8 * (8 + 1 + 9),
+    "Gauss-Jordan elimination": sum((8 - c) + (9 - c) + 14 * (9 - c)
+                                    for c in range(8)),
+    "Newton step check and norm": 33,
+    "Cauchy point (J^T r, J g, alpha)": 128 + 128 + 32 + 1 + 8,
+    "dogleg blend": 104,
+    "model decrease and radius": 211,
+}
+OPS_START = sum(OPS_RESJAC.values()) + 17  # one evaluation and |r|
+OPS_ITER = sum(OPS_STEP.values()) + sum(OPS_RESJAC.values())
+# device memory per point: 27 f32 inputs and the active byte read; x (8)
+# and J (64) f32, ok (1 byte) and iters (int32) written
+BYTES_PER_POINT = 27 * 4 + 1 + 72 * 4 + 1 + 4
+
+
+def stage_work(n_points, iters_sum):
+    """(f32 operations, bytes) the stage needs for n_points whose
+    iteration counts sum to iters_sum."""
+    ops = n_points * OPS_START + iters_sum * OPS_ITER
+    return ops, n_points * BYTES_PER_POINT
 
 
 def nvcc_command(out_path) -> list:
@@ -52,8 +91,9 @@ def nvcc_command(out_path) -> list:
 class DoglegKernel:
     """The built kernel library and its launch count.
 
-    ``launches`` grows by one per kernel launch and nowhere else, so a
-    run can show that its stage went through the kernel."""
+    ``launches`` grows by one per kernel launch (in ``run``) and
+    nowhere else, so a run can show that its stage went through the
+    kernel."""
 
     def __init__(self):
         self.launches = 0
@@ -61,8 +101,8 @@ class DoglegKernel:
         self._lib = None
 
     def library_path(self) -> Path:
-        key = hashlib.sha256(SOURCE.read_bytes()
-                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        flags = " ".join(NVCC_FLAGS)
+        key = hashlib.sha256(SOURCE.read_bytes() + flags.encode()).hexdigest()
         return BUILD_DIR / f"dogleg_voce_{key[:16]}.so"
 
     def build(self) -> Path:
@@ -74,8 +114,8 @@ class DoglegKernel:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         try:
-            proc = subprocess.run(nvcc_command(tmp), capture_output=True,
-                                  text=True)
+            proc = subprocess.run(nvcc_command(tmp),
+                                  capture_output=True, text=True)
             self.build_log = proc.stdout + proc.stderr
             if proc.returncode != 0:
                 raise RuntimeError(
@@ -90,15 +130,27 @@ class DoglegKernel:
     def lib(self):
         if self._lib is None:
             lib = ctypes.CDLL(str(self.build()))
-            lib.dogleg_voce_f32.argtypes = (
-                [ctypes.c_void_p] * 12
-                + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+            lib.dogleg_voce_f32.argtypes = ARGTYPES
             lib.dogleg_voce_f32.restype = ctypes.c_int
             lib.dogleg_voce_params_size.restype = ctypes.c_int
+            lib.dogleg_voce_build_info.argtypes = [ctypes.c_void_p] * 4
+            lib.dogleg_voce_build_info.restype = ctypes.c_int
             if lib.dogleg_voce_params_size() != 4 * (_PARAM_FLOATS + 4):
                 raise RuntimeError("DoglegParams layout mismatch")
             self._lib = lib
         return self._lib
+
+    def build_info(self) -> dict:
+        """Registers and local (stack and spill) bytes per thread,
+        resident blocks per SM and threads per block, as the CUDA runtime
+        reports them for the current device."""
+        vals = [ctypes.c_int(0) for _ in range(4)]
+        err = self.lib().dogleg_voce_build_info(
+            *(ctypes.byref(v) for v in vals))
+        if err != 0:
+            raise RuntimeError(f"dogleg_voce_build_info: CUDA error {err}")
+        return dict(zip(("registers", "local_bytes", "blocks_per_sm",
+                         "threads"), (v.value for v in vals)))
 
     def launch(self, params, d_vecd, w_sm, e_n, q_n, g, dts, x0, active):
         N = x0.shape[1]
@@ -107,17 +159,23 @@ class DoglegKernel:
         J = torch.empty((8, 8, N), dtype=torch.float32, device=dev)
         ok = torch.empty(N, dtype=torch.uint8, device=dev)
         iters = torch.empty(N, dtype=torch.int32, device=dev)
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.run(params, (d_vecd, w_sm, e_n, q_n, g, dts, x0, active),
+                 (x, J, ok, iters), counter)
+        return x, ok.bool(), iters, J
+
+    def run(self, params, inputs, outputs, counter):
+        """The kernel on the current stream, writing ``outputs`` (x, J,
+        ok, iters); ``counter`` is one zeroed int32 on the device."""
+        dev = outputs[0].device
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = self.lib().dogleg_voce_f32(
-            d_vecd.data_ptr(), w_sm.data_ptr(), e_n.data_ptr(),
-            q_n.data_ptr(), g.data_ptr(), dts.data_ptr(), x0.data_ptr(),
-            active.data_ptr(), x.data_ptr(), J.data_ptr(), ok.data_ptr(),
-            iters.data_ptr(), N, params.ctypes.data, stream)
+        ptrs = [t.data_ptr() for t in (*inputs, *outputs, counter)]
+        err = self.lib().dogleg_voce_f32(*ptrs, outputs[0].shape[1],
+                                         params.ctypes.data, stream)
         if err != 0:
             raise RuntimeError(f"dogleg_voce_f32 launch failed: CUDA error "
                                f"{err}")
         self.launches += 1
-        return x, ok.bool(), iters, J
 
 
 KERNEL = DoglegKernel()
@@ -130,12 +188,10 @@ def kernel_params(model, tol, max_iter) -> np.ndarray:
     if P.shape[0] != NSLIP:
         raise NotImplementedError("the kernel is built for 12 slip systems")
     PC = P @ np.asarray(model.elast.C_dev, dtype=np.float64)
-    W_P = np.einsum("sk,sl->kls", P, PC).reshape(25, NSLIP)
-    W_Q = np.einsum("sk,sl->kls", Q, PC).reshape(15, NSLIP)
     kin = model.kinetics
     buf = np.zeros(_PARAM_FLOATS + 4, dtype=np.float32)
     buf[:_PARAM_FLOATS] = np.concatenate(
-        [PC.ravel(), P.T.ravel(), Q.T.ravel(), W_P.ravel(), W_Q.ravel()])
+        [PC.ravel(), P.T.ravel(), Q.T.ravel()])
     buf[_PARAM_FLOATS:_PARAM_FLOATS + 3] = [1.0 / kin.xm, kin.gdot0, tol]
     buf[_PARAM_FLOATS + 3:].view(np.int32)[0] = int(max_iter)
     return buf

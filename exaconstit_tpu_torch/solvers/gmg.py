@@ -210,7 +210,11 @@ def _dense_factor(k, conn, ess, nn):
     keep = 1.0 - ess.to(k.dtype)
     A = A * keep[:, None] * keep[None, :] + torch.diag(ess.to(k.dtype))
     eye = torch.eye(n3, dtype=k.dtype, device=k.device)
-    return torch.linalg.cholesky(A + 1e-12 * eye)
+    # as jnp.linalg.cholesky: a matrix that is not positive definite gives
+    # a NaN factor, not an exception, so the V-cycle returns NaN, PCG
+    # stops on breakdown and the Newton step fails and is retried
+    L, info = torch.linalg.cholesky_ex(A + 1e-12 * eye)
+    return torch.where(info == 0, L, torch.nan)
 
 
 def _dense_solve(level, b):

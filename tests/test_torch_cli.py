@@ -90,6 +90,58 @@ def test_fixed_dt_matches_custom_schedule(tmp_path):
                        device="cpu")
 
 
+def _entry_point(name, toml, rundir):
+    """A call of one of the port's entry points on the 2^3 case; the
+    keyword arguments are passed through to choose the device."""
+    from exaconstit_tpu_torch import driver
+    from exaconstit_tpu_torch.config.options import parse_options
+
+    def call(**device):
+        if name == "run_simulation":
+            return driver.run_simulation(toml, workdir=str(rundir),
+                                         verbose=False, **device)
+        if name == "cli":
+            argv = ["-opt", toml, "-q"]
+            if device:
+                argv += ["--device", device["device"]]
+            return T_CLI.main(argv)
+        opt = parse_options(toml)
+        if name == "Simulation":
+            return driver.Simulation(opt, workdir=str(rundir), **device)
+        sim = driver.Simulation(opt, workdir=str(rundir), device="cpu")
+        return driver.MechSystem(opt, sim.mesh, sim.model, **device)
+
+    return call
+
+
+@pytest.mark.parametrize("name", ["run_simulation", "Simulation",
+                                  "MechSystem", "cli"])
+def test_entry_points_default_to_the_card(name, tmp_path, monkeypatch):
+    """With no card, each entry point called without a device raises
+    instead of running on the CPU; with device "cpu" it runs there."""
+    toml = write_voce_case(str(tmp_path / "case"), (2, 2, 2), (0.1,),
+                           ngrains=4, seed=2)
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call = _entry_point(name, toml, tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call(device="cuda")
+    out = call(device="cpu")
+    if name == "cli":
+        assert out == 0
+    elif name == "MechSystem":
+        assert out.device == torch.device("cpu")
+    else:
+        sysm = out.system
+        assert sysm.device == torch.device("cpu")
+        assert sysm.dshape.device.type == "cpu"
+    if name in ("run_simulation", "cli"):
+        stress = np.loadtxt(tmp_path / "avg_stress.txt", ndmin=2)
+        assert stress.shape == (1, 6) and np.isfinite(stress).all()
+
+
 def _imported_modules(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

@@ -7,6 +7,7 @@ tests/test_dogleg_pallas.py uses; the wrapper's routing on CPU tensors;
 the CUDA source and its build command; and, where a card is present, the
 CUDA kernel against the plain version."""
 
+import ctypes
 import dataclasses
 import re
 
@@ -167,6 +168,14 @@ def test_cuda_source_and_build_command():
     assert dogleg_cuda.BUILD_DIR.name == "build"
     assert re.match(r"dogleg_voce_[0-9a-f]{16}\.so",
                     dogleg_cuda.KERNEL.library_path().name)
+    # the ctypes argument list matches the C signature, the point counter
+    # included
+    sig = re.search(r'extern "C" int dogleg_voce_f32\(([^)]*)\)', src)
+    params = [p.strip() for p in sig.group(1).split(",")]
+    assert len(params) == len(dogleg_cuda.ARGTYPES) == 16
+    assert params[12] == "int* next" and params[13] == "int N"
+    for p, t in zip(params, dogleg_cuda.ARGTYPES):
+        assert ("*" in p) == (t is ctypes.c_void_p), p
 
 
 def _has_nvcc():
@@ -175,30 +184,52 @@ def _has_nvcc():
 
 
 def test_kernel_params_layout():
-    """The by-value DoglegParams struct: P C, P^T, Q^T, W_P, W_Q, 1/m,
-    gdot0, tol, max_iter, in the kernel's order."""
+    """The by-value DoglegParams struct: P C, the rows of [P^T; Q^T],
+    1/m, gdot0, tol, max_iter, in the kernel's order."""
     _, tm = _models()
     buf = dogleg_cuda.kernel_params(tm, TOL, MAX_ITER)
     P, Q = tm.slip.P, tm.slip.Q
     PC = P @ tm.elast.C_dev
-    assert buf.dtype == np.float32 and buf.size == 640
+    assert buf.dtype == np.float32 and buf.size == 160
     np.testing.assert_array_equal(buf[:60], PC.ravel().astype(np.float32))
     np.testing.assert_array_equal(buf[60:120], P.T.ravel().astype(np.float32))
     np.testing.assert_array_equal(buf[120:156],
                                   Q.T.ravel().astype(np.float32))
-    W_P = np.einsum("sk,sl->kls", P, PC).reshape(25, 12)
-    np.testing.assert_array_equal(buf[156:456],
-                                  W_P.ravel().astype(np.float32))
-    np.testing.assert_allclose(buf[636:639], [50.0, 1.0, TOL], rtol=1e-7)
-    assert int(buf[639:].view(np.int32)[0]) == MAX_ITER
+    np.testing.assert_allclose(buf[156:159], [50.0, 1.0, TOL], rtol=1e-7)
+    assert int(buf[159:].view(np.int32)[0]) == MAX_ITER
+    # the struct as the source declares it: 60 + 96 floats, 3 scalars
+    src = dogleg_cuda.SOURCE.read_text()
+    assert "float PC[NSLIP * 5];" in src and "float PQ[8 * NSLIP];" in src
+
+
+def test_stage_work_counts():
+    """The operation and byte counts the bound is computed from: one
+    evaluation and one iteration per point as the serial algorithm
+    needs them, and each input and output moved once."""
+    ops, nbytes = dogleg_cuda.stage_work(10, 44)
+    assert dogleg_cuda.OPS_START == sum(dogleg_cuda.OPS_RESJAC.values()) + 17
+    assert ops == 10 * dogleg_cuda.OPS_START + 44 * dogleg_cuda.OPS_ITER
+    assert 1800 < sum(dogleg_cuda.OPS_RESJAC.values()) < 2000
+    assert 3000 < dogleg_cuda.OPS_ITER < 3600
+    assert nbytes == 10 * (27 * 4 + 1 + 72 * 4 + 1 + 4)
+
+
+FAR_LANES = (3, 40, 777, 2048, 4000)
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_matches_plain_version():
+@pytest.mark.parametrize("case", ["seeded", "heavy_tail"])
+def test_cuda_kernel_matches_plain_version(case):
+    """The kernel against the plain version on the card.  heavy_tail
+    starts a few lanes 30 to 1e4 times farther from the root: they run
+    to max_iter while the groups around them take new points."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
     _, tm = _models()
     inputs = stage_inputs(4096, 0.08)
+    if case == "heavy_tail":
+        for lane, scale in zip(FAR_LANES, (30.0, -50.0, 100.0, 1e3, 1e4)):
+            inputs[6][:5, lane] *= scale
     cpu = [torch.tensor(a) for a in inputs]
     dev = [a.cuda() for a in cpu]
     d, w, e, q, h, dts, x0, active = dev
@@ -213,3 +244,10 @@ def test_cuda_kernel_matches_plain_version():
     assert float((~(ok_k == ok_r)).float().mean()) <= 1e-4
     assert float((x_k - x_r)[:, both].abs().max()) < 2e-5
     assert torch.equal(x_k[:, 5], x0[:, 5])
+    assert int(it_k[5]) == 0 and bool(ok_k[5])
+    if case == "heavy_tail":
+        far = list(FAR_LANES)
+        assert (it_r[far] == MAX_ITER).all() and not ok_r[far].any()
+        assert (it_k[far] == MAX_ITER).all() and not ok_k[far].any()
+    # every lane was written: converged, or out of iterations
+    assert bool((ok_k | (it_k == MAX_ITER)).all())

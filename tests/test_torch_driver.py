@@ -52,7 +52,8 @@ def port_problem(ncuts, precond="auto", ea_asm_f32=None):
     opt.krylov_precond = precond
     mesh = make_cartesian_mesh(ncuts, [1.0, 1.0, 1.0], order=1)
     model = build_model(opt, graft._VOCE_PROPS)
-    system = MechSystem(opt, mesh, model, ea_asm_f32=ea_asm_f32)
+    system = MechSystem(opt, mesh, model, device="cpu",
+                        ea_asm_f32=ea_asm_f32)
     rng = np.random.default_rng(0)
     q = rng.normal(size=(mesh.num_elems, 4))
     q /= np.linalg.norm(q, axis=1, keepdims=True)

@@ -129,7 +129,7 @@ def test_state_layout_init_and_substeps():
 def test_state_from_reference():
     rng = np.random.default_rng(1)
     s = rng.normal(size=(27, 40))
-    t = state_from_reference(s)
+    t = state_from_reference(s, device="cpu")
     assert t.dtype == torch.float64 and t.shape == (27, 40)
     np.testing.assert_array_equal(t.numpy(), s)
 

@@ -198,6 +198,23 @@ def test_gmg_hierarchy_and_v_cycle(jax_power_start):
     assert _rel(z_t.numpy(), z_j) < 1e-10
 
 
+def test_dense_coarse_solve_not_positive_definite(jax_power_start):
+    """A coarsest-level matrix that is not positive definite (the negated
+    Galerkin blocks) gives an all-NaN direct solve in both packages, not
+    an exception, so PCG stops on breakdown and Newton can retry."""
+    mesh, k, ess, b = ea_system(GMG_GRID, seed=2)
+    jlev, _, _, _ = _hierarchies(k, ess, b, mesh)
+    jl = dict(jlev[-1], k=-jlev[-1]["k"])
+    nn = jl["nn"]
+    chol = T_GMG._dense_factor(-torch.tensor(np.asarray(jlev[-1]["k"])),
+                               np.asarray(jl["conn"]),
+                               torch.tensor(np.asarray(jl["ess"])), nn)
+    rc = np.random.default_rng(0).normal(size=3 * nn)
+    z_t = T_GMG._dense_solve(dict(chol=chol), torch.tensor(rc))
+    assert np.isnan(np.asarray(J_GMG._dense_solve(jl, jnp.asarray(rc)))).all()
+    assert bool(torch.isnan(z_t).all())
+
+
 def test_pcg_gmg_f64(jax_power_start):
     """f64 PCG preconditioned by the V-cycle: same iterations, solution
     to 1e-10 relative."""
