@@ -15,9 +15,13 @@ result line:
    (32^3): converged flags, solutions (atol 2e-5), residuals, inactive
    lanes untouched, median times, iteration histogram, and the bound
    (the larger of the operations the iteration counts need over the f32
-   peak and the bytes over the memory rate) with the share reached;
+   peak and the bytes over the memory rate) with the share reached; and
+   the same checks on a BCC Voce model (``bcc12`` slip tables) at 262,144
+   points;
 4. the f64-polished staggered solve through the kernel against through
-   the plain version, 262,144 points, 2 substeps (atol 5e-9);
+   the plain version, 262,144 points, 2 substeps (atol 5e-9); and the
+   same solve in pure f64 (the plain trust region, as the MTSDD models
+   run it) timed beside the mixed one;
 5. the main path: ``run_simulation`` on an in-repo 32^3 FCC Voce case
    (500 Voronoi grains, uniaxial tension, dt 0.1, 0.2, 0.5, 1.0) on the
    card, with the kernel's launch count reset just before and read just
@@ -31,9 +35,19 @@ result line:
    path's kernel time against its bound;
 6. the same case at 4^3 for 2 steps on the card and on the CPU (the
    plain versions there): average stress to rel 1e-6;
-7. a ``kernels`` JSON line; then the ``ok`` JSON line, last.
+7. the MTSDD path: ``run_simulation`` on the in-repo 32^3 copper FCC
+   MTSDD case (500 grains, three steps of dt 0.01) on the card, with
+   the additional averages, one checkpoint and one VTU/PVD dump
+   written.  Its point solve is pure f64 (plain PyTorch; it must
+   launch the kernel no time): per step the seconds, Newton and Krylov
+   counts, sub-solves, seconds in the f64 trust-region solves and their
+   iterations; peak memory; every output file is read back;
+8. the MTSDD case at 4^3 for 2 steps on the card and on the CPU: average
+   stress to rel 1e-6;
+9. a ``kernels`` JSON line; then the ``ok`` JSON line, last.
 """
 
+import dataclasses
 import json
 import os
 import re
@@ -48,6 +62,11 @@ import torch
 STAGE_SIZES = (884_736, 262_144)
 TOL, MAX_ITER = 1e-6, 200
 MAIN_DTS = (0.1, 0.2, 0.5, 1.0)
+# Smaller steps than the Voce path's: at 32^3 the Newton solve of this
+# family's first steps does not converge at dt 0.1 (every step starts
+# from a velocity field kinked at the loaded face's nodes; ROADMAP C8)
+MTSDD_DTS = (0.01, 0.01, 0.01)
+BCC_STAGE_SIZE = 262_144
 TPU_KERNEL = "exaconstit_tpu/solvers/dogleg_pallas.py:211"
 KERNEL_SOURCE = "exaconstit_tpu_torch/csrc/dogleg_voce.cu"
 # NVIDIA H100 SXM data sheet: f32 outside the tensor cores, HBM3
@@ -94,15 +113,16 @@ def bound(ops, nbytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def build_voce_model():
-    """The FCC power-law Voce point model of the in-repo case."""
+def build_voce_model(xtal="FCC"):
+    """The power-law Voce point model of the in-repo case, on the FCC
+    lattice or with the BCC slip systems."""
     from exaconstit_tpu_torch.cases import VOCE_PROPS
     from exaconstit_tpu_torch.config.options import (ExaOptions, MechType,
                                                      SlipType, XtalType)
     from exaconstit_tpu_torch.models.ecmech import build_model
     opt = ExaOptions()
     opt.mech_type = MechType.EXACMECH
-    opt.xtal_type = XtalType.FCC
+    opt.xtal_type = XtalType[xtal]
     opt.slip_type = SlipType.POWERVOCE
     return build_model(opt, VOCE_PROPS).evptn
 
@@ -179,12 +199,12 @@ def phase_build():
     return info
 
 
-def phase_stage(model):
+def phase_stage(model, sizes=STAGE_SIZES, label="3 stage"):
     """Kernel against the plain version at the main path's batch sizes."""
     from exaconstit_tpu_torch.models import evptn_cm as cm
     from exaconstit_tpu_torch.solvers import dogleg_cuda as dc
     results = {}
-    for n in STAGE_SIZES:
+    for n in sizes:
         d, w, e, q, h, dts, x0, active = stage_inputs(model, n, 0.08,
                                                       seed=3)
         x0_keep = x0.clone()
@@ -203,7 +223,7 @@ def phase_stage(model):
         check(torch.equal(x0, x0_keep), "the stage modified its input")
         differ = (ok_k != ok_r).nonzero().flatten().tolist()
         for lane in differ[:20]:
-            log(f"[3 stage {n}] ok differs at lane {lane}: kernel "
+            log(f"[{label} {n}] ok differs at lane {lane}: kernel "
                 f"ok={bool(ok_k[lane])} iters={int(it_k[lane])}, plain "
                 f"ok={bool(ok_r[lane])} iters={int(it_r[lane])}")
         check(len(differ) <= 1e-4 * n,
@@ -214,7 +234,8 @@ def phase_stage(model):
         # the residual at the kernel's x, evaluated in f64
         f64 = [a.double() for a in (x_k, h, dts, d, w, e, q)]
         r = cm.residual_cm(model, f64[0], f64[1], f64[2],
-                           cm.vecd_to_mat_cm(f64[3]), f64[4], f64[5], f64[6])
+                           cm.vecd_to_mat_cm(f64[3]), f64[4], f64[5], f64[6],
+                           None)
         rn = torch.sqrt(torch.sum(r * r, dim=0))[ok_k & active]
         rmax = float(rn.max())
         check(rmax < 1.01 * TOL,
@@ -230,13 +251,13 @@ def phase_stage(model):
         iters_sum = int(it_k.sum())
         ops, nbytes = dc.stage_work(n, iters_sum)
         bound_ms, bound_by = bound(ops, nbytes)
-        log(f"[3 stage {n}] kernel {ms_k:.3f} ms, plain {ms_r:.3f} ms, "
+        log(f"[{label} {n}] kernel {ms_k:.3f} ms, plain {ms_r:.3f} ms, "
             f"max|dx| {err:.3e}, max f64 |r| {rmax:.3e} "
             f"({int((rn >= TOL).sum())} lanes in [tol, 1.01 tol)), "
             f"converged {int(ok_k.sum())}/{n}, flags differ {len(differ)}")
-        log(f"[3 stage {n}] iteration histogram (count per iters "
+        log(f"[{label} {n}] iteration histogram (count per iters "
             f"0..{len(hist) - 1}): {hist}")
-        log(f"[3 stage {n}] bound {bound_ms:.4f} ms, set by {bound_by} "
+        log(f"[{label} {n}] bound {bound_ms:.4f} ms, set by {bound_by} "
             f"({ops:.4e} f32 operations for {iters_sum} iterations, "
             f"{nbytes:.4e} bytes); share of bound {bound_ms / ms_k:.4f}")
         results[n] = dict(ms=ms_k, plain_ms=ms_r, max_abs_err=err,
@@ -255,11 +276,11 @@ def phase_staggered(model):
     check(model.substep_cap > 0 and int(dt / model.substep_cap) == 2,
           "phase 4 must substep")
     with torch.inference_mode():
-        out_k = cm.solve_staggered_cm_core(model, dt, *args, nsub)
+        out_k = cm.solve_staggered_cm_core(model, dt, *args, None, nsub)
         stage = dc.dogleg_stage
         dc.dogleg_stage = dc.dogleg_stage_reference
         try:
-            out_r = cm.solve_staggered_cm_core(model, dt, *args, nsub)
+            out_r = cm.solve_staggered_cm_core(model, dt, *args, None, nsub)
         finally:
             dc.dogleg_stage = stage
     torch.cuda.synchronize()
@@ -270,13 +291,37 @@ def phase_staggered(model):
     check(dx <= 5e-9, f"polished x differs by {dx:.3e} > 5e-9")
     check(dh <= 1e-8, f"hardness differs by rel {dh:.3e} > 1e-8")
     log(f"[4 staggered {n}, nsub 2] max|dx| {dx:.3e}, max rel dh {dh:.3e}")
+    # the same solve in pure f64 (the plain trust region to solver_tol,
+    # as the MTSDD models run it) beside the mixed one, per call
+    pure = dataclasses.replace(model, mixed_precision=False)
+    got = {}
+
+    def run_pure():
+        got["out"] = cm.solve_staggered_cm_core(pure, dt, *args, None, nsub)
+
+    with torch.inference_mode():
+        ms_mixed = cuda_time_ms(lambda: cm.solve_staggered_cm_core(
+            model, dt, *args, None, nsub))
+        ms_pure = cuda_time_ms(run_pure, reps=1)
+    out_p = got["out"]
+    dxp = float((out_p[0] - out_k[0]).abs().max())
+    check(bool(out_p[4].all()) and dxp <= 5e-9,
+          f"pure-f64 x differs from the mixed solve's by {dxp:.3e} > 5e-9")
+    log(f"[4 staggered {n}, nsub 2] per call: mixed (kernel + f64 polish) "
+        f"{ms_mixed:.1f} ms, pure f64 (plain trust region, "
+        f"{int(out_p[3].max())} iterations on the slowest lane) "
+        f"{ms_pure:.1f} ms, max|dx| between them {dxp:.3e}")
 
 
-def run_case(ncuts, dts, device, workdir):
-    from exaconstit_tpu_torch.cases import write_voce_case
+def run_case(ncuts, dts, device, workdir, family="voce", **options):
+    """Write the in-repo case of ``family`` ("voce" or "mtsdd") and run it
+    through ``run_simulation``; returns (sim, average stress rows)."""
+    from exaconstit_tpu_torch import cases
     from exaconstit_tpu_torch.driver import run_simulation
-    toml = write_voce_case(os.path.join(workdir, "case"), ncuts, dts,
-                           ngrains=500, seed=0)
+    write = {"voce": cases.write_voce_case,
+             "mtsdd": cases.write_mtsdd_case}[family]
+    toml = write(os.path.join(workdir, "case"), ncuts, dts, ngrains=500,
+                 seed=0, **options)
     run_dir = os.path.join(workdir, f"run_{device}")
     os.makedirs(run_dir)
     sim = run_simulation(toml, workdir=run_dir, verbose=False,
@@ -388,14 +433,122 @@ def phase_main(workdir):
                 max_ms=float(ms.max()))
 
 
-def phase_cpu_vs_cuda(workdir):
+def phase_cpu_vs_cuda(workdir, family="voce", label="6"):
     _, s_gpu = run_case((4, 4, 4), MAIN_DTS[:2], "cuda",
-                        os.path.join(workdir, "gpu"))
+                        os.path.join(workdir, family + "_gpu"), family)
     _, s_cpu = run_case((4, 4, 4), MAIN_DTS[:2], "cpu",
-                        os.path.join(workdir, "cpu"))
+                        os.path.join(workdir, family + "_cpu"), family)
     rel = float(np.max(np.abs(s_gpu - s_cpu)) / np.max(np.abs(s_cpu)))
-    check(rel <= 1e-6, f"CUDA and CPU average stress differ by rel {rel:.3e}")
-    log(f"[6 cuda vs cpu 4^3, 2 steps] max rel diff {rel:.3e}")
+    check(rel <= 1e-6, f"{family}: CUDA and CPU average stress differ by "
+          f"rel {rel:.3e}")
+    log(f"[{label} {family} cuda vs cpu 4^3, 2 steps] max rel diff "
+        f"{rel:.3e}")
+
+
+class PointSolveRecorder:
+    """Wraps ``evptn_cm.dogleg_cm`` (the plain f64 trust-region solve) and
+    ``Simulation.advance`` for one run: host seconds in the solves, with
+    a synchronisation either side, their count and the iterations of
+    their slowest lanes, summed per time step."""
+
+    def __init__(self):
+        self.steps = []
+        self.cur = dict(seconds=0.0, calls=0, iterations=0, max_iters=0)
+
+    def __enter__(self):
+        from exaconstit_tpu_torch import driver
+        from exaconstit_tpu_torch.models import evptn_cm as cm
+        self.cm, self.sim_cls = cm, driver.Simulation
+        self.dogleg, self.advance = cm.dogleg_cm, driver.Simulation.advance
+        rec = self
+
+        def dogleg_cm(resjac_fn, x0, tol, max_iter, active0=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = rec.dogleg(resjac_fn, x0, tol, max_iter, active0=active0)
+            worst = int(out[2].max())  # reads the device: synchronises
+            c = rec.cur
+            c["seconds"] += time.perf_counter() - t0
+            c["calls"] += 1
+            c["iterations"] += worst
+            c["max_iters"] = max(c["max_iters"], worst)
+            check(x0.dtype == torch.float64, "the MTSDD point solve must "
+                  "run in f64")
+            return out
+
+        def advance(sim, ti, dt, verbose=True):
+            out = rec.advance(sim, ti, dt, verbose)
+            rec.steps.append(rec.cur)
+            rec.cur = dict(seconds=0.0, calls=0, iterations=0, max_iters=0)
+            return out
+
+        cm.dogleg_cm = dogleg_cm
+        driver.Simulation.advance = advance
+        return self
+
+    def __exit__(self, *exc):
+        self.cm.dogleg_cm = self.dogleg
+        self.sim_cls.advance = self.advance
+
+
+def phase_mtsdd(workdir, dts=MTSDD_DTS, label="7 mtsdd 32^3"):
+    """The copper FCC MTSDD case at full width through run_simulation."""
+    from exaconstit_tpu_torch.solvers import dogleg_cuda as dc
+    nsteps = len(dts)
+    torch.cuda.reset_peak_memory_stats()
+    dc.KERNEL.launches = 0
+    with PointSolveRecorder() as rec:
+        t0 = time.perf_counter()
+        sim, stress = run_case((32, 32, 32), dts, "cuda", workdir, "mtsdd",
+                               additional_avgs=True, paraview=True,
+                               vis_steps=nsteps, checkpoint_steps=nsteps)
+        wall = time.perf_counter() - t0
+    launches = dc.KERNEL.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(not sim.model.evptn.mixed_precision and not sim.system.ea_asm_f32,
+          "the MTSDD path must be pure f64")
+    check(launches == 0, f"the MTSDD path launched the f32 kernel "
+          f"{launches} times")
+    check(stress.shape == (nsteps, 6) and np.isfinite(stress).all(),
+          f"MTSDD average stress rows {stress.shape} or not finite")
+    check(len(rec.steps) == nsteps and all(s["calls"] for s in rec.steps),
+          "a step ran no f64 point solve")
+    for k, (st, secs, ps) in enumerate(zip(sim.step_stats, sim.step_times,
+                                           rec.steps)):
+        kr = st["krylov_iters"]
+        log(f"[{label}] step {k + 1} dt {dts[k]}: {secs:.2f} s, first NR "
+            f"{st['first_nr']}, {st['subdivided']} sub-solve(s), last NR "
+            f"{st['nr_iters']}, Krylov/NR {kr}; f64 point solve "
+            f"{ps['seconds']:.2f} s in {ps['calls']} calls, "
+            f"{ps['iterations']} iterations in all, slowest call "
+            f"{ps['max_iters']}; szz {stress[k, 2]:.6g}")
+    run_dir = sim.workdir
+    npts, ne = sim.system.npts, sim.system.ne
+    shapes = {"avg_pl_work.txt": (nsteps, 1), "avg_def_grad.txt": (nsteps, 9),
+              "avg_dp_tensor.txt": (nsteps, 6)}
+    for fname, shape in shapes.items():
+        rows = np.loadtxt(os.path.join(run_dir, fname), ndmin=2)
+        check(rows.reshape(nsteps, -1).shape == shape
+              and np.isfinite(rows).all(), f"{fname}: rows {rows.shape}")
+    fzz = np.loadtxt(os.path.join(run_dir, "avg_def_grad.txt"), ndmin=2)[:, 8]
+    want = 1.0 + 1e-3 * np.cumsum(dts)
+    check(np.allclose(fzz, want, rtol=1e-5), f"average F_zz {fzz} != {want}")
+    with np.load(os.path.join(run_dir, "checkpoint", "checkpoint.npz")) as ck:
+        check(int(ck["ti"]) == nsteps
+              and ck["state"].shape == (ne, 8, sim.model.num_state)
+              and np.isfinite(ck["state"]).all(), "checkpoint archive")
+    vtu = os.path.join(run_dir, "results", "exaconstit",
+                       f"step_{nsteps:06d}.vtu")
+    check(os.path.getsize(vtu) > 100 * ne
+          and os.path.exists(os.path.join(run_dir, "results",
+                                          "exaconstit.pvd")),
+          "visualization dump")
+    ps_total = sum(s["seconds"] for s in rec.steps)
+    log(f"[{label}] {npts} points, precond {sim.system.precond_kind}, wall "
+        f"{wall:.2f} s for {nsteps} steps, f64 point solve {ps_total:.2f} s "
+        f"({ps_total / wall:.1%} of the wall), kernel launches {launches}, "
+        f"peak memory {peak / 2**30:.3f} GiB; checkpoint and "
+        f"{os.path.getsize(vtu) / 2**20:.1f} MiB VTU written")
 
 
 def main():
@@ -405,10 +558,14 @@ def main():
         model = build_voce_model()
         phase_build()
         stage = phase_stage(model)
+        stage_bcc = phase_stage(build_voce_model("BCC"), (BCC_STAGE_SIZE,),
+                                "3 stage bcc12")
         phase_staggered(model)
         with tempfile.TemporaryDirectory() as tmp:
             main_path = phase_main(os.path.join(tmp, "main"))
             phase_cpu_vs_cuda(tmp)
+            phase_mtsdd(os.path.join(tmp, "mtsdd"))
+            phase_cpu_vs_cuda(tmp, "mtsdd", "8")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
@@ -418,14 +575,15 @@ def main():
     print(json.dumps({"kernels": [{
         "name": "dogleg_voce_f32", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL, "launches": main_path["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in stage.values()),
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in (*stage.values(), *stage_bcc.values())),
         "ms": big["ms"], "plain_ms": big["plain_ms"],
         "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
         "share_of_bound": big["bound_ms"] / big["ms"],
         "library_ms": None,
         "path_ms_per_launch_median": main_path["median_ms"],
         "path_ms_per_launch_max": main_path["max_ms"]}]}))
-    log(f"[7 total] {time.perf_counter() - t_start:.1f} s")
+    log(f"[9 total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,19 +1,26 @@
-"""An in-repo FCC power-law Voce case: options file and inputs, from a seed.
+"""In-repo cases: options file and inputs, from a seed.
 
-The flagship configuration of the reference (``voce_full``: copper FCC
-crystals, power-law slip with Voce hardening, uniaxial tension along z
-with symmetry planes at x = 0, y = 0, z = 0) written into a directory,
-so a run needs nothing outside the repository:
+The two flagship families of the reference, written into a directory so
+a run needs nothing outside the repository.  Both are polycrystals under
+uniaxial tension along z with symmetry planes at x = 0, y = 0, z = 0:
 
-* ``props_cp_voce.txt``: the copper Voce constants (public values, the
-  same as the reference's test/data/props_cp_voce.txt);
-* ``state_cp_voce.txt``: the 24 initial state values the schema expects
-  (the model's own initial state takes precedence, as in ExaConstit);
+* ``write_voce_case`` (``voce_full``): copper FCC crystals, power-law
+  slip with Voce hardening;
+* ``write_mtsdd_case`` (``mtsdd_full``): Kocks-Mecking dislocation-density
+  kinetics, for FCC or BCC crystals with the copper parameter set (whose
+  k1, k2_0 select the calibrated rows of ``ecmech._MTSDD_CALIBRATION``)
+  or HCP crystals with a titanium-like per-slip set.
+
+Each writes:
+
+* ``props_*.txt``: the material constants;
+* ``state_*.txt``: the initial state values the schema expects (the
+  model's own initial state takes precedence, as in ExaConstit);
 * ``quats.ori``: seeded random unit quaternions, one per grain;
 * ``grains.txt``: a seeded nearest-seed (Voronoi) grain map on the voxel
   grid, one grain id per element, x fastest;
-* ``dt.txt``: the custom time-step schedule;
-* ``voce.toml``: the options file.
+* ``dt.txt``: the custom time-step schedule (unless ``auto_dt``);
+* ``voce.toml`` / ``mtsdd.toml``: the options file.
 """
 
 from __future__ import annotations
@@ -31,16 +38,58 @@ VOCE_PROPS = np.array([
     0.0, -1.0307952,                     # gruneisen, ref energy
 ])
 
+
+def _voigt_reuss_shear(c11, c12, c44):
+    mu = (c11 - c12) / 2.0
+    voigt = 0.2 * (2.0 * mu + 3.0 * c44)
+    reuss = (mu * c44) / (c44 + 3.0 * (mu - c44) * 0.2)
+    return 0.5 * (voigt + reuss)
+
+
+# copper MTSDD set, in the order scripts/ecmech_prop_file.py documents
+MTSDD_PROPS = np.array([
+    8.920e-6, 385.2, 1e-8,               # rho0, cv, solver tol
+    168.4, 121.4, 75.2,                  # c11, c12, c44 (GPa)
+    _voigt_reuss_shear(168.4, 121.4, 75.2), 300.0,  # mu_ref, T_ref
+    1944.106926, 4e-4, 1.0, 1.0,         # g0 b^3 / kB, tau_Peierls, p, q
+    1.0, 1.0, 0.03,                      # gam_wo, gam_ro, drag stress
+    0.008, 0.1,                          # go, s
+    3e-4, 5e-5, 0.1, 0.01, 9e-4,         # k1, k2_0, ninv, gam_ro_dd, rho_dd
+    0.0, -385.2 * 300.0,                 # gruneisen, ref energy
+])
+
+
+def hcp_mtsdd_props() -> np.ndarray:
+    """A titanium-like HCP MTSDD set in the per-slip layout (95 values:
+    c_1, g_0 and s for each of the 24 systems), with the basal and
+    prismatic families soft and the pyramidal ones hard."""
+    S = 24
+    go = np.full(S, 12e-3)
+    go[:6] = 4e-3
+    s = np.full(S, 0.12)
+    s[:6] = 0.06
+    c1 = np.full(S, 1.9e3)
+    return np.concatenate([
+        [8.92e-6, 385.0, 1e-10],
+        [162.4, 92.0, 69.0, 180.7, 46.7],  # c11 c12 c13 c33 c44
+        [46.0, 300.0], c1,
+        [4e-4, 1.0, 1.0, 1.0, 1.0, 3e-2],
+        go, s,
+        [3e-4, 5e-5, 0.1, 1e-2, 9e-4],
+        [0.0, -1.1556e5],
+    ])
+
+
 _TOML = """\
 Version = "0.6.0"
-[Properties]
+{checkpoint}[Properties]
     temperature = 298
     [Properties.Matl_Props]
-        floc = "props_cp_voce.txt"
-        num_props = 17
+        floc = "{props_file}"
+        num_props = {num_props}
     [Properties.State_Vars]
-        floc = "state_cp_voce.txt"
-        num_vars = 24
+        floc = "{state_file}"
+        num_vars = {num_vars}
     [Properties.Grain]
         ori_state_var_loc = 9
         ori_stride = 4
@@ -56,18 +105,18 @@ Version = "0.6.0"
     mech_type = "exacmech"
     cp = true
     [Model.ExaCMech]
-        xtal_type = "fcc"
-        slip_type = "powervoce"
+        xtal_type = "{xtal}"
+        slip_type = "{slip}"
 [Time]
-    [Time.Custom]
-        nsteps = {nsteps}
-        floc = "dt.txt"
+{time}
 [Visualizations]
-    steps = 100
+    steps = {vis_steps}
     visit = false
     conduit = false
-    paraview = false
+    paraview = {paraview}
+    floc = "results/exaconstit"
     avg_stress_fname = "avg_stress.txt"
+    additional_avgs = {additional_avgs}
 [Solvers]
     assembly = "EA"
     parallel_mode = "single"
@@ -90,7 +139,6 @@ Version = "0.6.0"
         ncuts = [{nx}, {ny}, {nz}]
 """
 
-
 def voronoi_grains(ncuts, ngrains, seed=0) -> np.ndarray:
     """Grain ids 1..ngrains of the nearest of ``ngrains`` seeded points,
     per element center, x fastest."""
@@ -109,20 +157,70 @@ def voronoi_grains(ncuts, ngrains, seed=0) -> np.ndarray:
     return ids + 1
 
 
-def write_voce_case(dirpath, ncuts, dts, ngrains=500, seed=0) -> str:
-    """Write the case into ``dirpath``; returns the options file path."""
+def _bool(v):
+    return "true" if v else "false"
+
+
+def _write_case(dirpath, name, props, xtal, slip, ncuts, dts, ngrains, seed,
+                additional_avgs=False, paraview=False, vis_steps=100,
+                checkpoint_steps=0, restart=False, auto_dt=None) -> str:
+    """Write the input files and ``<name>.toml`` into ``dirpath``.
+
+    ``auto_dt`` switches from the custom schedule ``dts`` to automatic
+    time stepping: a dict with ``dt_start``, ``dt_min``, ``t_final`` and
+    optionally ``dt_scale``.  ``checkpoint_steps`` > 0 writes a
+    checkpoint every that many steps, ``restart`` resumes from it;
+    ``paraview`` dumps VTU/PVD files every ``vis_steps`` steps and at the
+    end; ``additional_avgs`` adds the plastic work, deformation gradient
+    and plastic deformation rate files."""
     os.makedirs(dirpath, exist_ok=True)
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(ngrains, 4))
     q /= np.linalg.norm(q, axis=1, keepdims=True)
-    np.savetxt(os.path.join(dirpath, "props_cp_voce.txt"), VOCE_PROPS)
-    np.savetxt(os.path.join(dirpath, "state_cp_voce.txt"), np.zeros(24))
+    nslip = 24 if xtal == "hcp" else 12
+    num_vars = 4 + 5 + 1 + nslip + 2  # the history less the quaternion
+    props_file, state_file = f"props_cp_{name}.txt", f"state_cp_{name}.txt"
+    np.savetxt(os.path.join(dirpath, props_file), props)
+    np.savetxt(os.path.join(dirpath, state_file), np.zeros(num_vars))
     np.savetxt(os.path.join(dirpath, "quats.ori"), q)
     np.savetxt(os.path.join(dirpath, "grains.txt"),
                voronoi_grains(ncuts, ngrains, seed + 1), fmt="%d")
-    np.savetxt(os.path.join(dirpath, "dt.txt"), np.asarray(dts, float))
-    path = os.path.join(dirpath, "voce.toml")
+    if auto_dt is None:
+        np.savetxt(os.path.join(dirpath, "dt.txt"), np.asarray(dts, float))
+        time = (f"    [Time.Custom]\n        nsteps = {len(dts)}\n"
+                '        floc = "dt.txt"')
+    else:
+        time = "    [Time.Auto]\n" + "\n".join(
+            f"        {k} = {v}" for k, v in auto_dt.items())
+    checkpoint = ""
+    if checkpoint_steps > 0 or restart:
+        checkpoint = (f"[Checkpoint]\n    steps = {checkpoint_steps}\n"
+                      f"    restart = {_bool(restart)}\n")
+    path = os.path.join(dirpath, f"{name}.toml")
     with open(path, "w") as f:
-        f.write(_TOML.format(ngrains=ngrains, nsteps=len(dts),
-                             nx=ncuts[0], ny=ncuts[1], nz=ncuts[2]))
+        f.write(_TOML.format(
+            checkpoint=checkpoint, props_file=props_file,
+            num_props=len(props), state_file=state_file, num_vars=num_vars,
+            ngrains=ngrains, xtal=xtal, slip=slip, time=time,
+            vis_steps=vis_steps, paraview=_bool(paraview),
+            additional_avgs=_bool(additional_avgs),
+            nx=ncuts[0], ny=ncuts[1], nz=ncuts[2]))
     return path
+
+
+def write_voce_case(dirpath, ncuts, dts, ngrains=500, seed=0, **options) -> str:
+    """Write the FCC Voce case into ``dirpath``; returns the options file
+    path.  ``options`` as in ``_write_case``."""
+    return _write_case(dirpath, "voce", VOCE_PROPS, "fcc", "powervoce",
+                       ncuts, dts, ngrains, seed, **options)
+
+
+def write_mtsdd_case(dirpath, ncuts, dts, ngrains=500, xtal="fcc", seed=0,
+                     **options) -> str:
+    """Write the MTSDD case for ``xtal`` ("fcc", "bcc" or "hcp") into
+    ``dirpath``; returns the options file path."""
+    if xtal not in ("fcc", "bcc", "hcp"):
+        raise ValueError(f"unknown xtal {xtal!r}")
+    props = hcp_mtsdd_props() if xtal == "hcp" else MTSDD_PROPS
+    return _write_case(dirpath, "mtsdd", props, xtal, "mtsdd", ncuts, dts,
+                       ngrains, seed, **options)

@@ -6,8 +6,9 @@ the f32 EA block build for the mixed-precision (Voce) models, PCG with
 the GMG V-cycle (or Jacobi) inside mixed-precision iterative
 refinement, and the reference's host-side control flow: Newton with the
 3-point line-search fallback (NR) or always line-searching (NRLS), the
-BC-change corrector (SolveInit), custom or fixed dt with the
-subdivide retry, and the volume-averaged stress file.
+BC-change corrector (SolveInit), custom, fixed or automatic dt (the
+subdivide retry for the first two), the volume-averaged stress file and
+the additional averages, checkpoint/restart and visualization dumps.
 
 Everything runs eagerly; each Newton iteration, PCG iteration and
 dogleg iteration reads its stop test on the host.
@@ -30,6 +31,8 @@ from .fem import operators as ops
 from .fem.geometry import (adjugate_3x3_cm, det_3x3_cm, grad_calc_cm,
                            jacobians_cm)
 from .fem.space import FESpace, StructuredMap
+from .io.checkpoint import load_checkpoint, save_checkpoint
+from .io.postprocess import write_vis_step
 from .mesh.voxel import HexMesh, make_cartesian_mesh
 from .models.ecmech import ECMechModel, build_model
 from .solvers import gmg
@@ -197,6 +200,10 @@ class MechSystem:
         a = dev.cpu().numpy()
         return a.reshape(a.shape[0], self.nq, self.ne).transpose(2, 1, 0)
 
+    # stress shares the (k, npts) <-> (ne, nq, k) transform
+    to_stress = to_state
+    from_stress = from_state
+
     def _ess_flat(self, ess_mask):
         if torch.is_tensor(ess_mask) and ess_mask.ndim == 1:
             return ess_mask
@@ -300,10 +307,12 @@ class MechSystem:
                            opt.krylov_rel_tol, opt.krylov_abs_tol,
                            opt.krylov_iter)
 
-    def vol_avg(self, values_q, el_x):
-        """Volume-weighted average of a (k, nq, ne) field."""
+    def vol_avg(self, values_q, el_x, divide=True):
+        """Volume-weighted average (or, without ``divide``, the volume
+        integral) of a (k, nq, ne) field."""
         wts = ops.quad_point_volumes_cm(el_x, self.dshape, self.qwts)
-        return torch.einsum("qe,kqe->k", wts, values_q) / torch.sum(wts)
+        s = torch.einsum("qe,kqe->k", wts, values_q)
+        return s / torch.sum(wts) if divide else s
 
     # -- Newton solve ---------------------------------------------------------
 
@@ -432,12 +441,7 @@ class Simulation:
         unported = [name for name, on in (
             ("UMAT materials", opt.mech_type != MechType.EXACMECH),
             ("mesh files", opt.mesh_type != MeshType.AUTO),
-            ("checkpoint/restart", opt.checkpoint_steps > 0 or opt.restart),
-            ("visualization output", opt.visit or opt.conduit
-             or opt.paraview or opt.adios2),
-            ("additional averages", opt.additional_avgs),
             ("precision other than f64", opt.precision != "f64"),
-            ("automatic time stepping", opt.dt_auto),
         ) if on]
         if unported:
             raise NotImplementedError("not ported yet: "
@@ -499,6 +503,7 @@ class Simulation:
             self.cust_dt = None
             self.t_final = opt.t_final
             self.nsteps = int(np.ceil(opt.t_final / opt.dt_min))
+        self.dt_auto_cur = opt.dt  # automatic stepping: the next dt
 
         self.bc_steps = {s: resolve_step_bcs(opt, sysm.fes, s)
                          for s in opt.updateStep}
@@ -506,6 +511,9 @@ class Simulation:
         self.cur_bcs = self.bc_steps[1]
         self.step_times = []
         self.step_stats = []
+        self.vis_entries = []
+        self.visualize = (opt.visit or opt.conduit or opt.paraview
+                          or opt.adios2)
 
     def update_velocity(self):
         """Essential velocities (and velocity-gradient BCs) into v."""
@@ -523,7 +531,9 @@ class Simulation:
         self.v = sysm.to_node(v)
 
     def advance(self, ti, dt, verbose=True):
-        """One time step of size dt."""
+        """One time step of size dt; returns the dt it took (automatic
+        time stepping may cut it)."""
+        opt = self.opt
         sysm = self.system
         x_sub = None
         subdivided = 1
@@ -537,10 +547,30 @@ class Simulation:
                                      dt, self.cur_bcs.ess_mask)
         self.update_velocity()
 
-        v, stress, state_end, conv, nit, _ = sysm.newton_solve(
-            self.v, self.x_beg, self.state, dt, self.cur_bcs.ess_mask,
-            verbose)
-        if not conv:
+        if opt.dt_auto:
+            # up to two retries at dt * dt_scale, then dt grows (or
+            # shrinks) for the next step by newton_iter * dt_scale / nit
+            v_save = self.v
+            attempts = 0
+            while True:
+                v, stress, state_end, conv, nit, _ = sysm.newton_solve(
+                    self.v, self.x_beg, self.state, dt,
+                    self.cur_bcs.ess_mask, verbose)
+                if conv or attempts >= 2:
+                    break
+                print("WARNING: Solution did not converge; decreasing dt")
+                self.v = v_save
+                dt = max(dt * opt.dt_scale, opt.dt_min)
+                attempts += 1
+            if conv:
+                factor = opt.newton_iter * opt.dt_scale / max(nit, 1)
+                self.dt_auto_cur = max(dt * factor, opt.dt_min)
+                self._append_file(opt.dt_file, f"{dt:.12g}\n")
+        else:
+            v, stress, state_end, conv, nit, _ = sysm.newton_solve(
+                self.v, self.x_beg, self.state, dt, self.cur_bcs.ess_mask,
+                verbose)
+        if not conv and not opt.dt_auto:
             # ExaConstit aborts here; as the JAX package does, subdivide
             # the step and compose the sub-solves instead (essential velocities are rates, so
             # x_end = x + sum_k (dt/n) v_k)
@@ -562,9 +592,14 @@ class Simulation:
                                     subdivided=subdivided))
         self.v = v
         self.x_cur = x_sub if x_sub is not None else self.x_beg + dt * v
+        # state_prev is the state the step began from: the plastic
+        # deformation rate output reads it, so that output lags one step,
+        # as the reference's does
+        self.state_prev = self.state
         self.stress = stress
         self.state = state_end
         self.x_beg = self.x_cur
+        return dt
 
     def _solve_subdivided(self, dt, nsub, verbose):
         """One scheduled step as ``nsub`` composed sub-solves; commits
@@ -585,35 +620,74 @@ class Simulation:
         with open(os.path.join(self.workdir, name), "a") as f:
             f.write(text)
 
-    def average_stress(self):
-        """Volume-averaged Cauchy stress (svec) at the current step."""
-        sysm = self.system
-        el_x = sysm.smap.gather(self.x_cur)
-        return sysm.vol_avg(self.stress.reshape(6, sysm.nq, -1),
-                            el_x).cpu().numpy()
-
     def write_averages(self):
-        self._append_file(self.opt.avg_stress_fname, " ".join(
-            f"{v:.6g}" for v in self.average_stress()) + "\n")
+        """Append this step's row to the average stress file and, with
+        ``additional_avgs``, to the plastic work, deformation gradient and
+        plastic deformation rate files."""
+        opt = self.opt
+        sysm = self.system
+
+        def row(values):
+            return " ".join(f"{v:.6g}" for v in values.cpu().numpy()) + "\n"
+
+        el_x = sysm.smap.gather(self.x_cur)
+        self._append_file(opt.avg_stress_fname, row(sysm.vol_avg(
+            self.stress.reshape(6, sysm.nq, -1), el_x)))
+        if not opt.additional_avgs:
+            return
+        off, _ = self.model.qf_mapping["pl_work"]
+        self._append_file(opt.avg_pl_work_fname, row(sysm.vol_avg(
+            self.state[off:off + 1].reshape(1, sysm.nq, -1), el_x,
+            divide=False)))
+        # average deformation gradient F = d x_cur / d X over the
+        # reference volume, as a column-major 9-vector
+        el_X = sysm.smap.gather(self.x_ref)
+        Jref = jacobians_cm(el_X, sysm.dshape)
+        F = grad_calc_cm(el_x, sysm.dshape, adjugate_3x3_cm(Jref),
+                         det_3x3_cm(Jref))  # (3, 3, nq, ne)
+        self._append_file(opt.avg_def_grad_fname, row(sysm.vol_avg(
+            F.transpose(0, 1).reshape(9, sysm.nq, -1), el_X)))
+        # plastic deformation rate from the state the step began from,
+        # column-major (0, 4, 8, 5, 2, 1) -> svec
+        dp = self.model.dp_mat_cm(getattr(self, "state_prev", self.state))
+        dp9 = sysm.vol_avg(dp.transpose(0, 1).reshape(9, sysm.nq, -1), el_x)
+        self._append_file(opt.avg_dp_tensor_fname,
+                          row(dp9[[0, 4, 8, 5, 2, 1]]))
 
     def run(self, verbose=True):
+        opt = self.opt
         t = 0.0
         ti = 1
-        while ti <= self.nsteps:
+        ckpt_path = os.path.join(self.workdir, opt.checkpoint_dir,
+                                 "checkpoint.npz")
+        if opt.restart and os.path.exists(ckpt_path):
+            t, ti_done = load_checkpoint(ckpt_path, self)
+            ti = ti_done + 1
+            if verbose:
+                print(f"restarted from checkpoint at step {ti_done}, "
+                      f"t = {t:.6g}")
+        while ti <= self.nsteps or (opt.dt_auto
+                                    and t < self.t_final - 1e-14):
             if self.cust_dt is not None:
                 dt = float(self.cust_dt[ti - 1])
+            elif opt.dt_auto:
+                dt = min(self.dt_auto_cur, self.t_final - t)
             else:
-                dt = min(self.opt.dt, self.t_final - t)
+                dt = min(opt.dt, self.t_final - t)
             if verbose:
                 print(f"step {ti}, dt = {dt:.6g}")
             t0 = time.perf_counter()
-            self.advance(ti, dt, verbose)
+            dt = self.advance(ti, dt, verbose)
             if self.system.device.type == "cuda":
                 torch.cuda.synchronize(self.system.device)
             self.step_times.append(time.perf_counter() - t0)
             t += dt
             last = abs(t - self.t_final) <= abs(1e-3 * dt)
             self.write_averages()
+            if opt.checkpoint_steps > 0 and ti % opt.checkpoint_steps == 0:
+                save_checkpoint(ckpt_path, self, t, ti)
+            if self.visualize and (last or ti % opt.vis_steps == 0):
+                write_vis_step(self, ti, t, self.vis_entries)
             if verbose:
                 print(f"step {ti} done, t = {t:.6g} "
                       f"({self.step_times[-1]:.2f}s)")

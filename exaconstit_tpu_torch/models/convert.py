@@ -5,8 +5,10 @@ The JAX package is not imported here: a caller that has both packages
 dict of numpy arrays and scalars that ``ecmech_from_reference`` reads:
 
 * ``elast.C_dev`` (5, 5), ``elast.bulk``;
-* ``slip.P`` (12, 5), ``slip.Q`` (12, 3);
-* ``kin.<field>`` for every ``VocePL`` field;
+* ``slip.P`` (S, 5), ``slip.Q`` (S, 3), ``slip.name``;
+* ``kin.class`` (``"VocePL"``, ``"KMBalD"`` or ``"SplineG"``) and
+  ``kin.<field>`` for every field of that class (``KMBalD``'s ``c1``,
+  ``go`` and ``s`` as floats or per-slip (S,) arrays);
 * ``eos.<field>`` for every ``EosConst`` field;
 * ``solver_tol``, ``fast_tol``, ``refine_iters``, ``solver_max_iter``,
   ``substep_cap``, ``max_substeps``, ``h_gd_blend``,
@@ -24,7 +26,7 @@ from .ecmech import ECMechModel
 from .elasticity import Elasticity
 from .eos import EosConst
 from .evptn import EvptnModel
-from .kinetics import VocePL
+from . import kinetics
 from .slip_geom import SlipGeom
 
 _INT_FIELDS = ("refine_iters", "solver_max_iter", "max_substeps")
@@ -36,13 +38,39 @@ def _fields(cls, prefix, arrays):
             for f in dataclasses.fields(cls)}
 
 
+_SCALARS = _INT_FIELDS + _FLOAT_FIELDS + ("mixed_precision",)
+_KINETICS = {c.__name__: c for c in (kinetics.VocePL, kinetics.KMBalD,
+                                     kinetics.SplineG)}
+
+
+def arrays_from_model(model) -> dict:
+    """Flatten a model of either package into that dict.  Reads
+    attributes only, so the caller's model object brings its own package
+    with it and none is imported here."""
+    ev = model.evptn
+    kin_cls = _KINETICS[type(ev.kinetics).__name__]
+    arrays = {"elast.C_dev": ev.elast.C_dev, "elast.bulk": ev.elast.bulk,
+              "slip.P": ev.slip.P, "slip.Q": ev.slip.Q,
+              "slip.name": ev.slip.name, "kin.class": kin_cls.__name__,
+              "temp_k": model.temp_k}
+    for f in dataclasses.fields(kin_cls):
+        arrays[f"kin.{f.name}"] = getattr(ev.kinetics, f.name)
+    for f in dataclasses.fields(EosConst):
+        arrays[f"eos.{f.name}"] = getattr(ev.eos, f.name)
+    for k in _SCALARS:
+        arrays[k] = getattr(ev, k)
+    return arrays
+
+
 def ecmech_from_reference(arrays: dict) -> ECMechModel:
     """Build the port's model from the reference model's arrays."""
-    slip = SlipGeom(name="fcc12", P=np.asarray(arrays["slip.P"], float),
+    slip = SlipGeom(name=str(arrays["slip.name"]),
+                    P=np.asarray(arrays["slip.P"], float),
                     Q=np.asarray(arrays["slip.Q"], float))
     elast = Elasticity(C_dev=np.asarray(arrays["elast.C_dev"], float),
                        bulk=arrays["elast.bulk"])
-    kin = VocePL(**_fields(VocePL, "kin", arrays))
+    kin_cls = _KINETICS[arrays["kin.class"]]
+    kin = kin_cls(**_fields(kin_cls, "kin", arrays))
     eos = EosConst(**_fields(EosConst, "eos", arrays))
     extra = {k: int(arrays[k]) for k in _INT_FIELDS}
     extra.update({k: float(arrays[k]) for k in _FLOAT_FIELDS})

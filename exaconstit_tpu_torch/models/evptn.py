@@ -39,16 +39,18 @@ class EvptnModel:
 
     One lagged pass per substep: solve (e, xi) against the substep's
     begin hardness, then update the hardness from a blend of the
-    converged and begin-of-substep slip rates (``h_gd_blend``).  The
-    substep count is uniform over points, ``floor(dt * gdot0 /
-    substep_cap)`` clipped to [1, max_substeps].  Under
-    ``mixed_precision`` the trust-region stage runs in f32 to
-    ``fast_tol`` and ``refine_iters`` f64 Newton steps reusing the
-    stage's final Jacobian polish it."""
+    converged and begin-of-substep slip rates (``h_gd_blend``; 1 takes
+    the converged rates alone, as the MTSDD models do).  The substep
+    count is uniform over points, ``floor(dt * rate_ref / substep_cap)``
+    clipped to [1, max_substeps], with rate_ref the kinetics' reference
+    slip rate.  Under ``mixed_precision`` (the Voce models) the
+    trust-region stage runs in f32 to ``fast_tol`` and ``refine_iters``
+    f64 Newton steps reusing the stage's final Jacobian polish it;
+    without it (MTSDD) the trust region runs in f64 to ``solver_tol``."""
 
     slip: SlipGeom
     elast: Elasticity
-    kinetics: object  # VocePL
+    kinetics: object  # kinetics.VocePL, KMBalD or SplineG
     eos: EosConst
     solver_tol: float = 1e-10
     solver_max_iter: int = 200

@@ -174,16 +174,17 @@ def _lattice_rates(x, Dsm, w_sm, q_n):
     return R, Dlat, mat_to_vecd_cm(Dlat), w_lat
 
 
-def residual_cm(model, x, h, dt, Dsm, w_sm, e_n, q_n):
+def residual_cm(model, x, h, dt, Dsm, w_sm, e_n, q_n, temp_k):
     """Backward-Euler residual r (8, N) of x = [e (5); xi (3)].
 
     h (nh, N); Dsm (3, 3, N) sample-frame deformation rate; w_sm (3, N)
-    spin axial vector; e_n (5, N); q_n (4, N); dt scalar or (N,)."""
+    spin axial vector; e_n (5, N); q_n (4, N); dt scalar or (N,); temp_k
+    the temperature the kinetics read (Voce ignores it)."""
     e_end, xi = x[:5], x[5:]
     _, _, d_lat, w_lat = _lattice_rates(x, Dsm, w_sm, q_n)
     P = np.asarray(model.slip.P)
     PC = P @ np.asarray(model.elast.C_dev)
-    gd = model.kinetics.gdots(const_mm_cm(PC, e_end), h)
+    gd = model.kinetics.gdots(const_mm_cm(PC, e_end), h, temp_k)
     dp = const_mm_cm(P.T, gd)
     wp = const_mm_cm(np.asarray(model.slip.Q).T, gd)
     dtb = _dt_rows(dt)
@@ -192,7 +193,7 @@ def residual_cm(model, x, h, dt, Dsm, w_sm, e_n, q_n):
     return torch.cat([r_e, r_xi], dim=0)
 
 
-def residual_and_jac_cm(model, x, h, dt, Dsm, w_sm, e_n, q_n):
+def residual_and_jac_cm(model, x, h, dt, Dsm, w_sm, e_n, q_n, temp_k):
     """(r (8, N), J (8, 8, N)) with analytic kinetics and first-order
     right-increment kinematics derivatives."""
     e_end, xi = x[:5], x[5:]
@@ -200,7 +201,8 @@ def residual_and_jac_cm(model, x, h, dt, Dsm, w_sm, e_n, q_n):
     P = np.asarray(model.slip.P)
     Q = np.asarray(model.slip.Q)
     PC = P @ np.asarray(model.elast.C_dev)  # (S, 5)
-    gd, slope = model.kinetics.gdots_slope(const_mm_cm(PC, e_end), h)
+    gd, slope = model.kinetics.gdots_slope(const_mm_cm(PC, e_end), h,
+                                           temp_k)
     dp = const_mm_cm(P.T, gd)
     wp = const_mm_cm(Q.T, gd)
     dtb = _dt_rows(dt)
@@ -322,14 +324,18 @@ def _initial_guess_cm(model, dt_sub, Dsm, deff, e_c, q_c, h_c):
     e_trial = e_c + dt_sub[None] * mat_to_vecd_cm(rot_T_mat_rot_cm(R, Dsm))
     PC = np.asarray(model.slip.P) @ np.asarray(model.elast.C_dev)
     taus = const_mm_cm(PC, e_trial)
-    ratio_trial = torch.amax(torch.abs(taus), dim=0) / h_c[0]
-    ratio_op = model.kinetics.operating_ratio(deff)
+    kin = model.kinetics
+    # the slip strength: the hardness itself for Voce, a function of the
+    # dislocation density for the Kocks-Mecking kinetics
+    g = kin.strength_floor(h_c) if hasattr(kin, "strength_floor") else h_c[0]
+    ratio_trial = torch.amax(torch.abs(taus), dim=0) / g
+    ratio_op = kin.operating_ratio(deff)
     scale = torch.clamp(ratio_op / torch.clamp(ratio_trial, min=1e-30),
                         max=1.0)
     return e_trial * scale[None]
 
 
-def solve_staggered_cm_core(model, dt, d_cm, w_cm, e0, q0, h0, nsub,
+def solve_staggered_cm_core(model, dt, d_cm, w_cm, e0, q0, h0, temp_k, nsub,
                             x_warm=None, warm_ok=False):
     """Batched staggered solve, component-major io (c, N) tensors.
 
@@ -362,13 +368,14 @@ def solve_staggered_cm_core(model, dt, d_cm, w_cm, e0, q0, h0, nsub,
             # final f32 Jacobian
             x = x32.to(dtype)
             for _ in range(model.refine_iters):
-                r = residual_cm(model, x, h, dt_sub, Dsm, w_cm, e_c, q_c)
+                r = residual_cm(model, x, h, dt_sub, Dsm, w_cm, e_c, q_c,
+                                temp_k)
                 x = x - solve_dense_cm_eq(J32, r.to(f32)).to(dtype)
             return x, ok, iters
 
         def rj(x):
             return residual_and_jac_cm(model, x, h, dt_sub, Dsm, w_cm, e_c,
-                                       q_c)
+                                       q_c, temp_k)
 
         x, ok, iters, _, _ = dogleg_cm(rj, x0, model.solver_tol,
                                        model.solver_max_iter, active0=active)
@@ -382,8 +389,10 @@ def solve_staggered_cm_core(model, dt, d_cm, w_cm, e0, q0, h0, nsub,
             # final elastic strain + the total rotation increment split
             # evenly over the substeps
             xw = torch.cat([x_warm[:5], x_warm[5:] / nsub_f[None]], dim=0)
-            r_d = residual_cm(model, x0, h_c, dt_sub, Dsm, w_cm, e_c, q_c)
-            r_w = residual_cm(model, xw, h_c, dt_sub, Dsm, w_cm, e_c, q_c)
+            r_d = residual_cm(model, x0, h_c, dt_sub, Dsm, w_cm, e_c, q_c,
+                              temp_k)
+            r_w = residual_cm(model, xw, h_c, dt_sub, Dsm, w_cm, e_c, q_c,
+                              temp_k)
             better = torch.sum(r_w * r_w, dim=0) < torch.sum(r_d * r_d,
                                                              dim=0)
             x0 = torch.where(better[None], xw, x0)  # NaN -> default start
@@ -391,11 +400,11 @@ def solve_staggered_cm_core(model, dt, d_cm, w_cm, e0, q0, h0, nsub,
         x, ok, iters = solve_exi(x0, h_c, e_c, q_c, active)
         # hardness from the slip rates at the solution, blended toward
         # the begin-of-substep rates
-        gd = kin.gdots(const_mm_cm(PC, x[:5]), h_c)
+        gd = kin.gdots(const_mm_cm(PC, x[:5]), h_c, temp_k)
         if blend != 1.0:
-            gd_b = kin.gdots(const_mm_cm(PC, e_c), h_c)
+            gd_b = kin.gdots(const_mm_cm(PC, e_c), h_c, temp_k)
             gd = blend * gd + (1.0 - blend) * gd_b
-        h_new = kin.update_h(h_c, gd, dt_sub)
+        h_new = kin.update_h(h_c, gd, dt_sub, temp_k)
         q_new = quat_multiply_cm(q_c, expmap_to_quat_cm(x[5:]))
         q_new = q_new / torch.sqrt(torch.sum(q_new * q_new, dim=0))[None]
         return x[:5], q_new, h_new, iters, ok
@@ -440,7 +449,8 @@ def _vecd_rot5_cm(R):
     return torch.einsum("pil,kiln->pkn", B, RBRT)
 
 
-def tangent_cm_core(model, dt, d_cm, w_cm, e0, q0, x_cm, h_used_cm, v1):
+def tangent_cm_core(model, dt, d_cm, w_cm, e0, q0, x_cm, h_used_cm, v1,
+                    temp_k):
     """6x6 consistent tangent d(sigma_svec)/d(eps_svec_eng), (6, 6, N).
 
     Lagged mode: the implicit-function theorem on the (e, xi) system at
@@ -453,13 +463,14 @@ def tangent_cm_core(model, dt, d_cm, w_cm, e0, q0, x_cm, h_used_cm, v1):
         f32 = torch.float32
         return tangent_cm_core(
             model, dt, d_cm.to(f32), w_cm.to(f32), e0.to(f32), q0.to(f32),
-            x_cm.to(f32), h_used_cm.to(f32), v1.to(f32)).to(out_dtype)
+            x_cm.to(f32), h_used_cm.to(f32), v1.to(f32),
+            temp_k).to(out_dtype)
 
     N = x_cm.shape[1]
     C = np.asarray(model.elast.C_dev)
     Dsm = vecd_to_mat_cm(d_cm)
     _, Jz = residual_and_jac_cm(model, x_cm, h_used_cm, dt, Dsm, w_cm, e0,
-                                q0)  # (8, 8, N)
+                                q0, temp_k)  # (8, 8, N)
     e_end, xi = x_cm[:5], x_cm[5:]
 
     # right-hand side: only r_e depends on d, through d_lat = Q5(R^T) d
@@ -501,7 +512,7 @@ def vecd_to_svec_cm(t):
 
 
 def outputs_from_solution_cm(model, dt, d_cm, w_cm, v0, v1, e_int_n, e0,
-                             q0, x, h_end, h_used, iters, ok,
+                             q0, temp_k, x, h_end, h_used, iters, ok,
                              compute_tangent):
     """Stress/state/tangent outputs, component-major (c, N) tensors."""
     e_end = x[:5]
@@ -510,7 +521,7 @@ def outputs_from_solution_cm(model, dt, d_cm, w_cm, v0, v1, e_int_n, e0,
     P = np.asarray(model.slip.P)
     s_lat = const_mm_cm(np.asarray(model.elast.C_dev), e_end)  # (5, N)
     taus = const_mm_cm(P, s_lat)  # (S, N)
-    gd = model.kinetics.gdots(taus, h_used)
+    gd = model.kinetics.gdots(taus, h_used, temp_k)
     dp_lat = const_mm_cm(P.T, gd)
     s_sm_vecd = mv_cm(_vecd_rot5_cm(quat_to_rmat_cm(q_end)), s_lat) \
         / v1[None]
@@ -526,5 +537,5 @@ def outputs_from_solution_cm(model, dt, d_cm, w_cm, v0, v1, e_int_n, e0,
                converged=ok)
     if compute_tangent:
         out["tangent"] = tangent_cm_core(model, dt, d_cm, w_cm, e0, q0, x,
-                                         h_used, v1)
+                                         h_used, v1, temp_k)
     return out

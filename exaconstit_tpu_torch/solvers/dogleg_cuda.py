@@ -203,7 +203,9 @@ def dogleg_stage_reference(model, x0, h, dts, d_vecd, w_sm, e_n, q_n,
     Dsm = cm.vecd_to_mat_cm(d_vecd)
 
     def rj(x):
-        return cm.residual_and_jac_cm(model, x, h, dts, Dsm, w_sm, e_n, q_n)
+        # the stage is Voce only, and Voce kinetics read no temperature
+        return cm.residual_and_jac_cm(model, x, h, dts, Dsm, w_sm, e_n, q_n,
+                                      None)
 
     x, ok, iters, _, J = cm.dogleg_cm(rj, x0, tol, max_iter, active0=active)
     return x, ok, iters, None, J

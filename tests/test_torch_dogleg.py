@@ -40,12 +40,12 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def _models():
+def _models(xtal="FCC"):
     out = []
     for mod, ec in ((J_OPT, J_EC), (T_OPT, T_EC)):
         opt = mod.ExaOptions()
         opt.mech_type = mod.MechType.EXACMECH
-        opt.xtal_type = mod.XtalType.FCC
+        opt.xtal_type = mod.XtalType[xtal]
         opt.slip_type = mod.SlipType.POWERVOCE
         out.append(ec.build_model(opt, VOCE_PROPS).evptn)
     return out
@@ -114,13 +114,42 @@ def test_stage_reference_matches_jax(against):
                          torch.tensor(inputs[5]),
                          T_CM.vecd_to_mat_cm(torch.tensor(inputs[0])),
                          torch.tensor(inputs[1]), torch.tensor(inputs[2]),
-                         torch.tensor(inputs[3]))
+                         torch.tensor(inputs[3]), 300.0)
     rn = torch.sqrt(torch.sum(r * r, dim=0))
     assert float(rn[torch.tensor(inputs[7])].max()) < TOL
     np.testing.assert_array_equal(x_t.numpy()[:, 5], inputs[6][:, 5])
     assert int(it_t[5]) == 0
     assert x_t.dtype == J_t.dtype == torch.float32
     assert J_t.shape == (8, 8, n)
+
+
+def test_stage_reference_on_bcc_tables():
+    """A BCC Voce model feeds the stage the ``bcc12`` slip tables: the
+    plain version against the JAX package's ``dogleg_cm`` on the same
+    inputs (atol 2e-5), and the kernel's parameter block takes the BCC
+    tables where it took the FCC ones."""
+    jm, tm = _models("BCC")
+    _, fcc = _models()
+    assert tm.slip.name == "bcc12" and not np.allclose(tm.slip.P, fcc.slip.P)
+    inputs = stage_inputs(32, 0.04)
+    d, w, e, q, h, dts, x0, active = (jnp.asarray(a) for a in inputs)
+    Dsm = J_CM.vecd_to_mat_cm(d)
+    x_j, ok_j, _, _, _ = J_CM.dogleg_cm(
+        lambda x: J_CM.residual_and_jac_cm(jm, x, h, dts, Dsm, w, e, q,
+                                           300.0),
+        x0, TOL, MAX_ITER, active0=active)
+    x_t, ok_t, it_t, _, _ = run_reference(tm, inputs)
+    assert np.asarray(ok_j).all() and ok_t.all() and int(it_t.max()) > 1
+    np.testing.assert_allclose(x_t.numpy(), np.asarray(x_j), rtol=0,
+                               atol=2e-5)
+    buf = dogleg_cuda.kernel_params(tm, TOL, MAX_ITER)
+    PC = tm.slip.P @ tm.elast.C_dev
+    np.testing.assert_array_equal(buf[:60], PC.ravel().astype(np.float32))
+    np.testing.assert_array_equal(buf[60:120],
+                                  tm.slip.P.T.ravel().astype(np.float32))
+    assert not np.array_equal(buf[:156],
+                              dogleg_cuda.kernel_params(fcc, TOL,
+                                                        MAX_ITER)[:156])
 
 
 def test_wrapper_routes_cpu_tensors_to_plain_version():
@@ -218,14 +247,15 @@ FAR_LANES = (3, 40, 777, 2048, 4000)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["seeded", "heavy_tail"])
+@pytest.mark.parametrize("case", ["seeded", "heavy_tail", "bcc12"])
 def test_cuda_kernel_matches_plain_version(case):
     """The kernel against the plain version on the card.  heavy_tail
     starts a few lanes 30 to 1e4 times farther from the root: they run
-    to max_iter while the groups around them take new points."""
+    to max_iter while the groups around them take new points; bcc12
+    gives the kernel a BCC Voce model's slip tables."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
-    _, tm = _models()
+    _, tm = _models("BCC" if case == "bcc12" else "FCC")
     inputs = stage_inputs(4096, 0.08)
     if case == "heavy_tail":
         for lane, scale in zip(FAR_LANES, (30.0, -50.0, 100.0, 1e3, 1e4)):

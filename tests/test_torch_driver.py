@@ -7,6 +7,12 @@ small FCC Voce problem (``__graft_entry__._tiny_problem`` on both sides).
   rel 1e-9: 1e-10 relative, same NR and Krylov iteration counts;
 * production defaults (f32 EA build, GMG where the grid coarsens, the
   input's Newton tolerance): 1e-6 relative, the Newton tolerance level.
+
+And the ``Simulation`` loop on the in-repo Voce case at 4^3: automatic
+time stepping (the same dt sequence, average stress to 1e-6) with the
+additional averages (every file to 1e-6 of its largest entry, the
+plastic deformation rate lagging one step), the retry logic of the
+automatic step on a stubbed Newton solve, and what is still refused.
 """
 
 import numpy as np
@@ -17,8 +23,11 @@ import jax
 import jax.numpy as jnp
 
 import __graft_entry__ as graft
+from exaconstit_tpu.config import options as J_OPT
+from exaconstit_tpu.driver import Simulation as JSimulation
+from exaconstit_tpu_torch import cases
 from exaconstit_tpu_torch.config import options as T_OPT
-from exaconstit_tpu_torch.driver import MechSystem
+from exaconstit_tpu_torch.driver import MechSystem, Simulation
 from exaconstit_tpu_torch.mesh.voxel import make_cartesian_mesh
 from exaconstit_tpu_torch.models.ecmech import build_model
 from exaconstit_tpu_torch.solvers import gmg as T_GMG
@@ -113,3 +122,113 @@ def test_newton_production_defaults(ncuts, precond):
     assert ts.precond_kind == precond and ts.ea_asm_f32
     for a, b in zip(out_t[:3], out_j[:3]):
         assert _rel(a.numpy(), b) < 1e-6
+
+
+AUTO = dict(dt_start=0.1, dt_min=0.05, dt_scale=0.25, t_final=0.5)
+
+
+def test_auto_dt_and_additional_averages(tmp_path):
+    """Automatic time stepping grows dt by newton_iter * dt_scale / nit:
+    both packages take the same steps (1e-12) to t_final and write them to
+    the dt file; average stress, plastic work, deformation gradient and
+    plastic deformation rate agree to 1e-6 of each file's largest entry
+    (the files print 6 digits)."""
+    toml = cases.write_voce_case(tmp_path / "case", (4, 4, 4), None,
+                                 ngrains=12, auto_dt=AUTO,
+                                 additional_avgs=True)
+    out = {}
+    for name, opts, sim_cls, kw in (("jax", J_OPT, JSimulation, {}),
+                                    ("torch", T_OPT, Simulation,
+                                     {"device": "cpu"})):
+        wd = tmp_path / name
+        wd.mkdir()
+        with torch.inference_mode():
+            sim = sim_cls(opts.parse_options(toml), workdir=str(wd), **kw)
+            t_end = sim.run(verbose=False)
+        assert abs(t_end - AUTO["t_final"]) < 1e-12
+        out[name] = {f: np.loadtxt(wd / f, ndmin=2) for f in (
+            "auto_dt_out.txt", "avg_stress.txt", "avg_pl_work.txt",
+            "avg_def_grad.txt", "avg_dp_tensor.txt")}
+    j, t = out["jax"], out["torch"]
+    dts = t["auto_dt_out.txt"].ravel()
+    assert len(dts) >= 3 and dts[1] > dts[0] and abs(dts.sum() - 0.5) < 1e-9
+    np.testing.assert_allclose(dts, j["auto_dt_out.txt"].ravel(), rtol=0,
+                               atol=1e-12)
+    for f in j:
+        assert t[f].shape == j[f].shape, f
+        assert _rel(t[f], j[f]) < 1e-6, f
+    n = len(dts)
+    assert t["avg_stress.txt"].shape == (n, 6)
+    assert t["avg_def_grad.txt"].shape == (n, 9)
+    # F_zz - 1 is the applied strain 1e-3 * t; the plastic work grows
+    np.testing.assert_allclose(t["avg_def_grad.txt"][:, 8],
+                               1 + 1e-3 * np.cumsum(dts), rtol=1e-5)
+    assert (np.diff(t["avg_pl_work.txt"].ravel()) > 0).all()
+    # Dp reads the state the step began from: zero after step 1, and
+    # after step k what the state held after step k - 1
+    dp = t["avg_dp_tensor.txt"]
+    assert not dp[0].any() and np.abs(dp[-1]).max() > 1e-5
+
+
+class _StubSystem:
+    """newton_solve that fails a set number of times, then converges in
+    ``nit`` iterations; records the dt of every call."""
+
+    def __init__(self, real, fails, nit):
+        self.real, self.fails, self.nit, self.dts = real, fails, nit, []
+        self.last_newton_stats = {}
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+    def newton_solve(self, v, x_beg, state, dt, ess_mask, verbose=True):
+        self.dts.append(dt)
+        conv = len(self.dts) > self.fails
+        return v, self.real_stress, state, conv, self.nit, 0.0
+
+
+@pytest.mark.parametrize("fails,ok", [(0, True), (2, True), (3, False)])
+def test_auto_dt_retries(tmp_path, fails, ok):
+    """A failed solve is retried at dt * dt_scale, at most twice, from the
+    velocity the step began with; the step returns the dt it took and
+    sets the next one to dt * newton_iter * dt_scale / nit, never below
+    dt_min."""
+    toml = cases.write_voce_case(tmp_path / "case", (2, 2, 2), None,
+                                 ngrains=4, auto_dt=dict(AUTO, dt_min=0.03,
+                                                         dt_scale=0.5))
+    sim = Simulation(T_OPT.parse_options(toml), workdir=str(tmp_path),
+                     device="cpu")
+    stub = _StubSystem(sim.system, fails, nit=5)
+    stub.real_stress = sim.stress
+    sim.advance(1, 0.1, verbose=False)  # a real first step (with SolveInit)
+    sim.system = stub
+    if not ok:
+        with pytest.raises(RuntimeError, match="did not converge"):
+            sim.advance(2, 0.1, verbose=False)
+        assert stub.dts == [0.1, 0.05, 0.03]
+        return
+    dt = sim.advance(2, 0.1, verbose=False)
+    assert stub.dts == [0.1, 0.05, 0.03][:fails + 1] and dt == stub.dts[-1]
+    assert sim.dt_auto_cur == pytest.approx(max(dt * 25 * 0.5 / 5, 0.03))
+    written = np.loadtxt(tmp_path / "auto_dt_out.txt").ravel()
+    assert written[-1] == pytest.approx(dt)
+
+
+@pytest.mark.parametrize("what,match", [
+    ("umat", "UMAT"), ("mesh", "mesh files"), ("f32", "precision")])
+def test_simulation_still_refuses(tmp_path, what, match):
+    """UMAT materials, mesh files and precisions other than f64 are not
+    ported; everything else the options file can ask for runs."""
+    toml = cases.write_voce_case(tmp_path / "case", (2, 2, 2), (0.1,),
+                                 ngrains=4, additional_avgs=True,
+                                 paraview=True, checkpoint_steps=1)
+    opt = T_OPT.parse_options(toml)
+    Simulation(opt, workdir=str(tmp_path), device="cpu")  # builds
+    if what == "umat":
+        opt.mech_type = T_OPT.MechType.UMAT
+    elif what == "mesh":
+        opt.mesh_type = T_OPT.MeshType.OTHER
+    else:
+        opt.precision = "f32"
+    with pytest.raises(NotImplementedError, match=match):
+        Simulation(opt, workdir=str(tmp_path), device="cpu")

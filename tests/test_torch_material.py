@@ -19,10 +19,9 @@ from exaconstit_tpu.models import evptn_cm as J_CM
 from exaconstit_tpu_torch.config import options as T_OPT
 from exaconstit_tpu_torch.models import ecmech as T_EC
 from exaconstit_tpu_torch.models import evptn_cm as T_CM
-from exaconstit_tpu_torch.models.convert import (ecmech_from_reference,
+from exaconstit_tpu_torch.models.convert import (arrays_from_model,
+                                                 ecmech_from_reference,
                                                  state_from_reference)
-from exaconstit_tpu_torch.models.eos import EosConst
-from exaconstit_tpu_torch.models.kinetics import VocePL
 
 VOCE_PROPS = np.array([
     8.920e-6, 0.003435984, 1.0e-10, 168.4, 121.4, 75.2, 44.0, 0.02, 1.0,
@@ -65,17 +64,7 @@ SCALARS = ("solver_tol", "fast_tol", "refine_iters", "solver_max_iter",
 
 def reference_arrays(jm):
     """The JAX model flattened into the converter's dict of arrays."""
-    ev = jm.evptn
-    arrays = {"elast.C_dev": ev.elast.C_dev, "elast.bulk": ev.elast.bulk,
-              "slip.P": ev.slip.P, "slip.Q": ev.slip.Q,
-              "temp_k": jm.temp_k}
-    for f in dataclasses.fields(VocePL):
-        arrays[f"kin.{f.name}"] = getattr(ev.kinetics, f.name)
-    for f in dataclasses.fields(EosConst):
-        arrays[f"eos.{f.name}"] = getattr(ev.eos, f.name)
-    for k in SCALARS:
-        arrays[k] = getattr(ev, k)
-    return arrays
+    return arrays_from_model(jm)
 
 
 def assert_same_model(a, b):
@@ -238,7 +227,7 @@ def test_staggered_solve_f64(dt):
         jnp.full((40,), nsub, jnp.int32))
     got = T_CM.solve_staggered_cm_core(
         tm.evptn, dt, *[torch.tensor(a) for a in (d_vecd, w, e, q, h)],
-        torch.full((40,), int(nsub), dtype=torch.int32))
+        300.0, torch.full((40,), int(nsub), dtype=torch.int32))
     assert int(nsub) == int(dt / 0.1 + 1e-9)
     assert np.asarray(ref[4]).all() and got[4].all()
     for a, b in zip(got[:3], ref[:3]):
