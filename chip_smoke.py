@@ -23,7 +23,7 @@ result line:
    same solve in pure f64 (the plain trust region, as the MTSDD models
    run it) timed beside the mixed one;
 5. the main path: ``run_simulation`` on an in-repo 32^3 FCC Voce case
-   (500 Voronoi grains, uniaxial tension, dt 0.1, 0.2, 0.5, 1.0) on the
+   (500 Voronoi grains, uniaxial tension, dt 0.1, 0.2, 0.5) on the
    card, with the kernel's launch count reset just before and read just
    after; every step converges, stress is finite, and the hardening
    slope drops below half the elastic one.  Each launch records a CUDA
@@ -44,7 +44,20 @@ result line:
    iterations; peak memory; every output file is read back;
 8. the MTSDD case at 4^3 for 2 steps on the card and on the CPU: average
    stress to rel 1e-6;
-9. a ``kernels`` JSON line; then the ``ok`` JSON line, last.
+9. the mesh-file path: the Voce case of phase 5 written as an MFEM mesh
+   file and run through the CLI entry point (``Mesh.type = "other"``,
+   PA assembly, PCG with Jacobi, the index gather/scatter, cold point
+   solves) on the card, dt 0.1, 0.2.  First, two calls of the first
+   setup give bitwise-equal residuals, PA tensors and diagonals (the
+   index scatter uses no atomics); then, with the kernel's launch count
+   reset just before the run and read just after, per step the seconds,
+   Newton and Krylov counts and sigma_zz, the seconds in setups, line
+   searches and Krylov solves, the PA applies, peak memory, and one PA
+   apply timed alone in f32 and f64;
+10. CUDA against CPU at 4^3 for 2 steps, average stress to rel 1e-6, for
+   each configuration the earlier phases do not run: a mesh file with
+   EA, PA, B-bar, GMRES, MINRES and the elastic UMAT;
+11. a ``kernels`` JSON line; then the ``ok`` JSON line, last.
 """
 
 import dataclasses
@@ -61,11 +74,25 @@ import torch
 
 STAGE_SIZES = (884_736, 262_144)
 TOL, MAX_ITER = 1e-6, 200
-MAIN_DTS = (0.1, 0.2, 0.5, 1.0)
+# Three steps against the smoke's time limit (a fourth, dt 1.0, is the
+# slowest of all); step 3 crosses yield
+MAIN_DTS = (0.1, 0.2, 0.5)
 # Smaller steps than the Voce path's: at 32^3 the Newton solve of this
 # family's first steps does not converge at dt 0.1 (every step starts
 # from a velocity field kinked at the loaded face's nodes; ROADMAP C8)
 MTSDD_DTS = (0.01, 0.01, 0.01)
+# The mesh-file PA path: the main path's first two steps.  Its third
+# (dt 0.5, across yield) passed only as 8 sub-solves, at the last retry
+MESH_PA_DTS = (0.1, 0.2)
+# 4^3 configurations held CUDA against CPU in phase 10: (family, options)
+VARIANTS = {
+    "mesh EA": ("voce", dict(mesh_file=True)),
+    "mesh PA": ("voce", dict(mesh_file=True, assembly="PA")),
+    "BBar": ("voce", dict(integ_model="BBAR")),
+    "GMRES": ("voce", dict(krylov_solver="GMRES")),
+    "MINRES": ("voce", dict(krylov_solver="MINRES")),
+    "UMAT": ("umat", {}),
+}
 BCC_STAGE_SIZE = 262_144
 TPU_KERNEL = "exaconstit_tpu/solvers/dogleg_pallas.py:211"
 KERNEL_SOURCE = "exaconstit_tpu_torch/csrc/dogleg_voce.cu"
@@ -313,15 +340,23 @@ def phase_staggered(model):
         f"{ms_pure:.1f} ms, max|dx| between them {dxp:.3e}")
 
 
-def run_case(ncuts, dts, device, workdir, family="voce", **options):
-    """Write the in-repo case of ``family`` ("voce" or "mtsdd") and run it
-    through ``run_simulation``; returns (sim, average stress rows)."""
+def write_case(ncuts, dts, workdir, family="voce", **options):
+    """Write the in-repo case of ``family`` ("voce", "mtsdd" or "umat")
+    into ``workdir``/case; returns the options file's path."""
     from exaconstit_tpu_torch import cases
-    from exaconstit_tpu_torch.driver import run_simulation
+    path = os.path.join(workdir, "case")
+    if family == "umat":
+        return cases.write_umat_case(path, ncuts, dts, **options)
     write = {"voce": cases.write_voce_case,
              "mtsdd": cases.write_mtsdd_case}[family]
-    toml = write(os.path.join(workdir, "case"), ncuts, dts, ngrains=500,
-                 seed=0, **options)
+    return write(path, ncuts, dts, ngrains=500, seed=0, **options)
+
+
+def run_case(ncuts, dts, device, workdir, family="voce", **options):
+    """Write the in-repo case of ``family`` and run it through
+    ``run_simulation``; returns (sim, average stress rows)."""
+    from exaconstit_tpu_torch.driver import run_simulation
+    toml = write_case(ncuts, dts, workdir, family, **options)
     run_dir = os.path.join(workdir, f"run_{device}")
     os.makedirs(run_dir)
     sim = run_simulation(toml, workdir=run_dir, verbose=False,
@@ -433,16 +468,25 @@ def phase_main(workdir):
                 max_ms=float(ms.max()))
 
 
-def phase_cpu_vs_cuda(workdir, family="voce", label="6"):
-    _, s_gpu = run_case((4, 4, 4), MAIN_DTS[:2], "cuda",
-                        os.path.join(workdir, family + "_gpu"), family)
-    _, s_cpu = run_case((4, 4, 4), MAIN_DTS[:2], "cpu",
-                        os.path.join(workdir, family + "_cpu"), family)
+def phase_cpu_vs_cuda(workdir, family="voce", label="6", name=None,
+                      **options):
+    name = name or family
+    tag = name.replace(" ", "_")
+    secs = {}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        _, out[dev] = run_case((4, 4, 4), MAIN_DTS[:2], dev,
+                               os.path.join(workdir, f"{tag}_{dev}"),
+                               family, **options)
+        secs[dev] = time.perf_counter() - t0
+    s_gpu, s_cpu = out["cuda"], out["cpu"]
     rel = float(np.max(np.abs(s_gpu - s_cpu)) / np.max(np.abs(s_cpu)))
-    check(rel <= 1e-6, f"{family}: CUDA and CPU average stress differ by "
-          f"rel {rel:.3e}")
-    log(f"[{label} {family} cuda vs cpu 4^3, 2 steps] max rel diff "
-        f"{rel:.3e}")
+    check(np.isfinite(s_gpu).all() and rel <= 1e-6,
+          f"{name}: CUDA and CPU average stress differ by rel {rel:.3e}")
+    log(f"[{label} {name} cuda vs cpu 4^3, 2 steps] max rel diff "
+        f"{rel:.3e} ({secs['cuda']:.1f} s on the card, {secs['cpu']:.1f} s "
+        f"on the CPU)")
 
 
 class PointSolveRecorder:
@@ -551,6 +595,155 @@ def phase_mtsdd(workdir, dts=MTSDD_DTS, label="7 mtsdd 32^3"):
         f"{os.path.getsize(vtu) / 2**20:.1f} MiB VTU written")
 
 
+class LayerRecorder:
+    """Wraps the ``MechSystem`` methods of one run at class level: host
+    seconds in each (a synchronisation either side) and its calls, and
+    the operator applies (``apply_k``, counted, not timed); captures the
+    run's ``Simulation``."""
+
+    TIMED = ("setup", "residual_only", "krylov_solve")
+
+    def __init__(self):
+        self.seconds = dict.fromkeys(self.TIMED, 0.0)
+        self.calls = dict.fromkeys(self.TIMED + ("apply_k",), 0)
+        self.sim = None
+
+    def __enter__(self):
+        from exaconstit_tpu_torch import driver
+        self.cls, self.sim_cls = driver.MechSystem, driver.Simulation
+        self.saved = {n: getattr(self.cls, n)
+                      for n in self.TIMED + ("apply_k",)}
+        self.saved_run = self.sim_cls.run
+        rec = self
+
+        def timed(name):
+            inner = rec.saved[name]
+
+            def call(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = inner(*args, **kw)
+                torch.cuda.synchronize()
+                rec.seconds[name] += time.perf_counter() - t0
+                rec.calls[name] += 1
+                return out
+            return call
+
+        def apply_k(*args, **kw):
+            rec.calls["apply_k"] += 1
+            return rec.saved["apply_k"](*args, **kw)
+
+        def run(sim, *args, **kw):
+            rec.sim = sim
+            return rec.saved_run(sim, *args, **kw)
+
+        for name in self.TIMED:
+            setattr(self.cls, name, timed(name))
+        self.cls.apply_k = apply_k
+        self.sim_cls.run = run
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.cls, name, fn)
+        self.sim_cls.run = self.saved_run
+
+
+def check_setup_bitwise(toml):
+    """Two calls of the run's first setup on the card (step 1's SolveInit
+    setup) give bitwise-equal residuals, operator data and diagonals."""
+    from exaconstit_tpu_torch import set_precision_policy
+    from exaconstit_tpu_torch.config.options import parse_options
+    from exaconstit_tpu_torch.driver import Simulation
+    from exaconstit_tpu_torch.fem.space import IndexMap
+    set_precision_policy()
+    with torch.inference_mode():
+        sim = Simulation(parse_options(toml), workdir=os.path.dirname(toml),
+                         device="cuda")
+        sysm = sim.system
+        check(isinstance(sysm.emap, IndexMap) and sysm.pa
+              and sysm.point_major and sysm.precond_kind == "jacobi",
+              "the mesh-file PA case must take the index map, PA and "
+              "Jacobi")
+        sim.cur_bcs = sim.bc_steps[1]
+        sim.update_velocity()
+        ess = sysm.to_ess(sim.cur_bcs.ess_mask)
+        dt = MESH_PA_DTS[0]
+        args = (sim.v, sim.x_beg, sim.state, dt, ess, False,
+                sysm.compute_nsub(dt), None, False)
+        first = sysm.setup(*args)[:3]
+        second = sysm.setup(*args)[:3]
+    for name, a, b in zip(("residual", "PA tensor", "diagonal"), first,
+                          second):
+        check(torch.equal(a, b), f"two calls of the first setup give "
+              f"different {name}s")
+    pa_ms = {}
+    with torch.inference_mode():
+        x = torch.where(ess, 0.0, sim.v + 1.0)
+        for dtype in (torch.float32, torch.float64):
+            k = first[1].to(dtype)
+            pa_ms[str(dtype)[6:]] = cuda_time_ms(
+                lambda: sysm.apply_k(k, x.to(dtype)), reps=5)
+    log(f"[9 mesh PA 32^3] two calls of the first setup: residual, PA "
+        f"tensor {tuple(first[1].shape)} and diagonal bitwise equal "
+        f"(index map of valence {sysm.emap.valence}); one PA apply "
+        f"(gather, apply, scatter) {pa_ms['float32']:.3f} ms in f32, "
+        f"{pa_ms['float64']:.3f} ms in f64")
+    del sim, sysm, first, second
+    return pa_ms
+
+
+def phase_mesh_pa(workdir):
+    """The Voce case from an MFEM mesh file with PA assembly and Jacobi-
+    PCG at full width, through the CLI entry point on the card."""
+    from exaconstit_tpu_torch import cli
+    from exaconstit_tpu_torch.solvers import dogleg_cuda as dc
+    toml = write_case((32, 32, 32), MESH_PA_DTS, workdir, "voce",
+                      mesh_file=True, assembly="PA")
+    pa_ms = check_setup_bitwise(toml)
+    run_dir = os.path.join(workdir, "run_cuda")
+    os.makedirs(run_dir)
+    cwd = os.getcwd()
+    torch.cuda.reset_peak_memory_stats()
+    with LayerRecorder() as rec:
+        os.chdir(run_dir)
+        try:
+            dc.KERNEL.launches = 0
+            t0 = time.perf_counter()
+            cli.main(["-opt", toml, "-q"])
+            wall = time.perf_counter() - t0
+            launches = dc.KERNEL.launches
+        finally:
+            os.chdir(cwd)
+    peak = torch.cuda.max_memory_allocated()
+    sim = rec.sim
+    stress = np.loadtxt(os.path.join(run_dir, "avg_stress.txt"), ndmin=2)
+    nsteps = len(MESH_PA_DTS)
+    check(stress.shape == (nsteps, 6) and np.isfinite(stress).all(),
+          f"mesh PA average stress rows {stress.shape} or not finite")
+    check(len(sim.step_stats) == nsteps, "a step of the mesh PA path did "
+          "not finish")
+    check(launches > 0, "the mesh PA path never launched the dogleg kernel")
+    for k, (st, secs) in enumerate(zip(sim.step_stats, sim.step_times)):
+        kr = st["krylov_iters"]
+        retry = (f"first solve failed after NR {st['first_nr']}, "
+                 f"{st['subdivided']} sub-solves, the last: "
+                 if st["subdivided"] > 1 else "")
+        log(f"[9 mesh PA 32^3] step {k + 1} dt {MESH_PA_DTS[k]}: "
+            f"{secs:.2f} s, {retry}NR {st['nr_iters']}, Krylov/NR {kr} "
+            f"(mean {np.mean(kr) if kr else 0:.1f}), szz {stress[k, 2]:.6g}")
+    sec, calls = rec.seconds, rec.calls
+    log(f"[9 mesh PA 32^3] {sim.system.npts} points, precond "
+        f"{sim.system.precond_kind}, wall {wall:.2f} s for {nsteps} steps; "
+        f"setup {sec['setup']:.2f} s in {calls['setup']}, line-search "
+        f"residuals {sec['residual_only']:.2f} s in "
+        f"{calls['residual_only']}, Krylov {sec['krylov_solve']:.2f} s in "
+        f"{calls['krylov_solve']} solves with {calls['apply_k']} PA "
+        f"applies; kernel launches {launches}, peak memory "
+        f"{peak / 2**30:.3f} GiB")
+    return dict(launches=launches, wall=wall, pa_ms=pa_ms)
+
+
 def main():
     t_start = time.perf_counter()
     try:
@@ -566,6 +759,9 @@ def main():
             phase_cpu_vs_cuda(tmp)
             phase_mtsdd(os.path.join(tmp, "mtsdd"))
             phase_cpu_vs_cuda(tmp, "mtsdd", "8")
+            mesh_pa = phase_mesh_pa(os.path.join(tmp, "mesh_pa"))
+            for name, (family, options) in VARIANTS.items():
+                phase_cpu_vs_cuda(tmp, family, "10", name, **options)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
@@ -582,8 +778,9 @@ def main():
         "share_of_bound": big["bound_ms"] / big["ms"],
         "library_ms": None,
         "path_ms_per_launch_median": main_path["median_ms"],
-        "path_ms_per_launch_max": main_path["max_ms"]}]}))
-    log(f"[9 total] {time.perf_counter() - t_start:.1f} s")
+        "path_ms_per_launch_max": main_path["max_ms"],
+        "launches_mesh_pa_path": mesh_pa["launches"]}]}))
+    log(f"[11 total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -9,7 +9,13 @@ uniaxial tension along z with symmetry planes at x = 0, y = 0, z = 0:
 * ``write_mtsdd_case`` (``mtsdd_full``): Kocks-Mecking dislocation-density
   kinetics, for FCC or BCC crystals with the copper parameter set (whose
   k1, k2_0 select the calibrated rows of ``ecmech._MTSDD_CALIBRATION``)
-  or HCP crystals with a titanium-like per-slip set.
+  or HCP crystals with a titanium-like per-slip set;
+* ``write_umat_case``: an isotropic elastic UMAT (the repository's
+  ``native/libumat_elastic.so``, E = 100, nu = 0.3) on one grain.
+
+Every writer can put the voxel brick into an MFEM mesh file
+(``mesh_file=True``, ``write_mfem_mesh``) and name the assembly, the
+integration model and the Krylov solver.
 
 Each writes:
 
@@ -20,7 +26,8 @@ Each writes:
 * ``grains.txt``: a seeded nearest-seed (Voronoi) grain map on the voxel
   grid, one grain id per element, x fastest;
 * ``dt.txt``: the custom time-step schedule (unless ``auto_dt``);
-* ``voce.toml`` / ``mtsdd.toml``: the options file.
+* ``mesh.mesh``: the voxel brick as an MFEM mesh (with ``mesh_file``);
+* ``voce.toml`` / ``mtsdd.toml`` / ``umat.toml``: the options file.
 """
 
 from __future__ import annotations
@@ -80,6 +87,31 @@ def hcp_mtsdd_props() -> np.ndarray:
     ])
 
 
+_GRAIN = """\
+    [Properties.Grain]
+        ori_state_var_loc = 9
+        ori_stride = 4
+        ori_type = "quat"
+        num_grains = {ngrains}
+        ori_floc = "quats.ori"
+        grain_floc = "grains.txt"
+"""
+
+_EXACMECH = """\
+    mech_type = "exacmech"
+    cp = true
+    [Model.ExaCMech]
+        xtal_type = "{xtal}"
+        slip_type = "{slip}"
+"""
+
+_UMAT = """\
+    mech_type = "umat"
+    cp = false
+    [Model.UMAT]
+        library = "{library}"
+"""
+
 _TOML = """\
 Version = "0.6.0"
 {checkpoint}[Properties]
@@ -90,24 +122,12 @@ Version = "0.6.0"
     [Properties.State_Vars]
         floc = "{state_file}"
         num_vars = {num_vars}
-    [Properties.Grain]
-        ori_state_var_loc = 9
-        ori_stride = 4
-        ori_type = "quat"
-        num_grains = {ngrains}
-        ori_floc = "quats.ori"
-        grain_floc = "grains.txt"
-[BCs]
+{grain}[BCs]
     essential_ids = [1, 2, 3, 4]
     essential_comps = [3, 1, 2, 3]
     essential_vals = [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.001]
 [Model]
-    mech_type = "exacmech"
-    cp = true
-    [Model.ExaCMech]
-        xtal_type = "{xtal}"
-        slip_type = "{slip}"
-[Time]
+{model}[Time]
 {time}
 [Visualizations]
     steps = {vis_steps}
@@ -118,23 +138,24 @@ Version = "0.6.0"
     avg_stress_fname = "avg_stress.txt"
     additional_avgs = {additional_avgs}
 [Solvers]
-    assembly = "EA"
+    assembly = "{assembly}"
+    integ_model = "{integ_model}"
     parallel_mode = "single"
     [Solvers.NR]
         iter = 25
         rel_tol = 5e-5
         abs_tol = 5e-10
     [Solvers.Krylov]
-        iter = 1000
+        iter = {krylov_iter}
         rel_tol = 1e-7
         abs_tol = 1e-27
-        solver = "PCG"
+        solver = "{krylov_solver}"
 [Mesh]
     ref_ser = 0
     ref_par = 0
     p_refinement = 1
-    type = "auto"
-    [Mesh.Auto]
+    type = "{mesh_type}"
+{mesh_floc}    [Mesh.Auto]
         length = [1.0, 1.0, 1.0]
         ncuts = [{nx}, {ny}, {nz}]
 """
@@ -161,10 +182,68 @@ def _bool(v):
     return "true" if v else "false"
 
 
-def _write_case(dirpath, name, props, xtal, slip, ncuts, dts, ngrains, seed,
-                additional_avgs=False, paraview=False, vis_steps=100,
-                checkpoint_steps=0, restart=False, auto_dt=None) -> str:
-    """Write the input files and ``<name>.toml`` into ``dirpath``.
+# the boundary quads of a voxel brick, per ExaConstit attribute: the
+# face's fixed axis and side, and its four corners in the two free axes
+# (MFEM's outward orientation)
+_FACES = {1: (2, 0, ((0, 0), (0, 1), (1, 1), (1, 0))),
+          4: (2, 1, ((0, 0), (1, 0), (1, 1), (0, 1))),
+          2: (0, 0, ((0, 0), (0, 1), (1, 1), (1, 0))),
+          5: (0, 1, ((0, 0), (1, 0), (1, 1), (0, 1))),
+          3: (1, 0, ((0, 0), (1, 0), (1, 1), (0, 1))),
+          6: (1, 1, ((0, 0), (0, 1), (1, 1), (1, 0)))}
+# lexicographic local vertex -> MFEM hex vertex order (its own inverse)
+_LEX_TO_MFEM = np.array([0, 1, 3, 2, 4, 5, 7, 6])
+
+
+def write_mfem_mesh(path, mesh):
+    """Write an order-1 voxel brick (``make_cartesian_mesh``) as an ASCII
+    MFEM v1.0 mesh: the grain ids as element attributes and the
+    boundary quads tagged 1-6 as ExaConstit tags them (z = 0, x = 0,
+    y = 0, z = L, x = L, y = L).  ``read_mfem_mesh`` reads it back with
+    the same nodes, elements, attributes and boundary node sets."""
+    if mesh.structure is None or mesh.order != 1:
+        raise ValueError("write_mfem_mesh writes an order-1 voxel brick")
+    nx, ny, nz = mesh.structure
+    n = (nx + 1, ny + 1, nz + 1)
+    quads = []
+    for attr, (axis, side, corners) in _FACES.items():
+        u, w = [a for a in range(3) if a != axis]
+        iu, iw = np.meshgrid(np.arange(n[u] - 1), np.arange(n[w] - 1),
+                             indexing="ij")
+        ijk = [None] * 3
+        verts = []
+        for du, dw in corners:
+            ijk[axis] = np.full(iu.size, side * (n[axis] - 1))
+            ijk[u], ijk[w] = iu.ravel() + du, iw.ravel() + dw
+            verts.append(ijk[0] + n[0] * (ijk[1] + n[1] * ijk[2]))
+        quads.append(np.column_stack([np.full(iu.size, attr),
+                                      np.full(iu.size, 3)] + verts))
+    quads = np.concatenate(quads)
+    elems = np.column_stack([mesh.elem_attr, np.full(mesh.num_elems, 5),
+                             np.asarray(mesh.conn)[:, _LEX_TO_MFEM]])
+    with open(path, "w") as f:
+        f.write("MFEM mesh v1.0\n\ndimension\n3\n\n")
+        f.write(f"elements\n{len(elems)}\n")
+        np.savetxt(f, elems, fmt="%d")
+        f.write(f"\nboundary\n{len(quads)}\n")
+        np.savetxt(f, quads, fmt="%d")
+        f.write(f"\nvertices\n{mesh.num_nodes}\n3\n")
+        np.savetxt(f, mesh.coords, fmt="%.17g")
+
+
+UMAT_LIBRARY = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "native", "libumat_elastic.so")
+
+
+def _write_case(dirpath, name, props, ncuts, dts, ngrains, seed,
+                xtal=None, slip=None, library=None, additional_avgs=False,
+                paraview=False, vis_steps=100, checkpoint_steps=0,
+                restart=False, auto_dt=None, mesh_file=False, assembly="EA",
+                integ_model="FULL", krylov_solver="PCG",
+                krylov_iter=1000) -> str:
+    """Write the input files and ``<name>.toml`` into ``dirpath``: an
+    ExaCMech crystal case (``xtal``, ``slip``) or, with ``library``, a
+    UMAT case on one grain with one zero state variable.
 
     ``auto_dt`` switches from the custom schedule ``dts`` to automatic
     time stepping: a dict with ``dt_start``, ``dt_min``, ``t_final`` and
@@ -172,19 +251,38 @@ def _write_case(dirpath, name, props, xtal, slip, ncuts, dts, ngrains, seed,
     checkpoint every that many steps, ``restart`` resumes from it;
     ``paraview`` dumps VTU/PVD files every ``vis_steps`` steps and at the
     end; ``additional_avgs`` adds the plastic work, deformation gradient
-    and plastic deformation rate files."""
+    and plastic deformation rate files.  ``mesh_file`` writes the voxel
+    brick (with the grain map as attributes) to ``mesh.mesh`` and reads
+    it as ``Mesh.type = "other"``; ``assembly`` ("EA", "PA", "FULL"),
+    ``integ_model`` ("FULL", "BBAR"), ``krylov_solver`` ("PCG",
+    "MINRES", "GMRES") and ``krylov_iter`` go to ``[Solvers]``."""
+    from .mesh.voxel import make_cartesian_mesh
     os.makedirs(dirpath, exist_ok=True)
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(ngrains, 4))
     q /= np.linalg.norm(q, axis=1, keepdims=True)
-    nslip = 24 if xtal == "hcp" else 12
-    num_vars = 4 + 5 + 1 + nslip + 2  # the history less the quaternion
-    props_file, state_file = f"props_cp_{name}.txt", f"state_cp_{name}.txt"
+    props_file, state_file = f"props_{name}.txt", f"state_{name}.txt"
+    if library is None:
+        nslip = 24 if xtal == "hcp" else 12
+        num_vars = 4 + 5 + 1 + nslip + 2  # the history less the quaternion
+        props_file, state_file = f"props_cp_{name}.txt", f"state_cp_{name}.txt"
+        grain = _GRAIN.format(ngrains=ngrains)
+        model = _EXACMECH.format(xtal=xtal, slip=slip)
+    else:
+        num_vars = 1
+        grain = ""
+        model = _UMAT.format(library=library)
     np.savetxt(os.path.join(dirpath, props_file), props)
     np.savetxt(os.path.join(dirpath, state_file), np.zeros(num_vars))
     np.savetxt(os.path.join(dirpath, "quats.ori"), q)
-    np.savetxt(os.path.join(dirpath, "grains.txt"),
-               voronoi_grains(ncuts, ngrains, seed + 1), fmt="%d")
+    grains = voronoi_grains(ncuts, ngrains, seed + 1)
+    np.savetxt(os.path.join(dirpath, "grains.txt"), grains, fmt="%d")
+    mesh_floc = ""
+    if mesh_file:
+        write_mfem_mesh(os.path.join(dirpath, "mesh.mesh"),
+                        make_cartesian_mesh(ncuts, [1.0, 1.0, 1.0],
+                                            grain_map=grains))
+        mesh_floc = '    floc = "mesh.mesh"\n'
     if auto_dt is None:
         np.savetxt(os.path.join(dirpath, "dt.txt"), np.asarray(dts, float))
         time = (f"    [Time.Custom]\n        nsteps = {len(dts)}\n"
@@ -201,9 +299,12 @@ def _write_case(dirpath, name, props, xtal, slip, ncuts, dts, ngrains, seed,
         f.write(_TOML.format(
             checkpoint=checkpoint, props_file=props_file,
             num_props=len(props), state_file=state_file, num_vars=num_vars,
-            ngrains=ngrains, xtal=xtal, slip=slip, time=time,
+            grain=grain, model=model, time=time,
             vis_steps=vis_steps, paraview=_bool(paraview),
-            additional_avgs=_bool(additional_avgs),
+            additional_avgs=_bool(additional_avgs), assembly=assembly,
+            integ_model=integ_model, krylov_solver=krylov_solver,
+            krylov_iter=krylov_iter,
+            mesh_type="other" if mesh_file else "auto", mesh_floc=mesh_floc,
             nx=ncuts[0], ny=ncuts[1], nz=ncuts[2]))
     return path
 
@@ -211,8 +312,8 @@ def _write_case(dirpath, name, props, xtal, slip, ncuts, dts, ngrains, seed,
 def write_voce_case(dirpath, ncuts, dts, ngrains=500, seed=0, **options) -> str:
     """Write the FCC Voce case into ``dirpath``; returns the options file
     path.  ``options`` as in ``_write_case``."""
-    return _write_case(dirpath, "voce", VOCE_PROPS, "fcc", "powervoce",
-                       ncuts, dts, ngrains, seed, **options)
+    return _write_case(dirpath, "voce", VOCE_PROPS, ncuts, dts, ngrains,
+                       seed, xtal="fcc", slip="powervoce", **options)
 
 
 def write_mtsdd_case(dirpath, ncuts, dts, ngrains=500, xtal="fcc", seed=0,
@@ -222,5 +323,14 @@ def write_mtsdd_case(dirpath, ncuts, dts, ngrains=500, xtal="fcc", seed=0,
     if xtal not in ("fcc", "bcc", "hcp"):
         raise ValueError(f"unknown xtal {xtal!r}")
     props = hcp_mtsdd_props() if xtal == "hcp" else MTSDD_PROPS
-    return _write_case(dirpath, "mtsdd", props, xtal, "mtsdd", ncuts, dts,
-                       ngrains, seed, **options)
+    return _write_case(dirpath, "mtsdd", props, ncuts, dts, ngrains, seed,
+                       xtal=xtal, slip="mtsdd", **options)
+
+
+def write_umat_case(dirpath, ncuts, dts, library=UMAT_LIBRARY,
+                    E=100.0, nu=0.3, seed=0, **options) -> str:
+    """Write the elastic UMAT case (props E, nu; one grain) into
+    ``dirpath``; returns the options file path.  ``options`` as in
+    ``_write_case``."""
+    return _write_case(dirpath, "umat", np.array([E, nu]), ncuts, dts, 1,
+                       seed, library=library, **options)

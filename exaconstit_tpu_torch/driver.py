@@ -1,12 +1,14 @@
 """System driver: time stepping, Newton-Krylov solves, BCs, outputs.
 
-Port of ``exaconstit_tpu.driver`` for one device on a structured voxel
-mesh: the component-major EA path with the strided gather/scatter-add,
-the f32 EA block build for the mixed-precision (Voce) models, PCG with
-the GMG V-cycle (or Jacobi) inside mixed-precision iterative
-refinement, and the reference's host-side control flow: Newton with the
-3-point line-search fallback (NR) or always line-searching (NRLS), the
-BC-change corrector (SolveInit), custom, fixed or automatic dt (the
+Port of ``exaconstit_tpu.driver`` for one device, every single-device
+configuration of the reference but ``precision = "f32"``: the voxel
+brick (``Mesh.type = "auto"``) or an MFEM mesh file, the strided or the
+index gather/scatter-add, EA (and FULL), PA or B-bar assembly, ExaCMech
+or UMAT materials, PCG (GMG V-cycle or Jacobi, inside mixed-precision
+iterative refinement), MINRES or GMRES; one component-major layout for
+all of them.  And the reference's host-side control flow: Newton with
+the 3-point line-search fallback (NR) or always line-searching (NRLS),
+the BC-change corrector (SolveInit), custom, fixed or automatic dt (the
 subdivide retry for the first two), the volume-averaged stress file and
 the additional averages, checkpoint/restart and visualization dumps.
 
@@ -30,13 +32,15 @@ from .config.options import (Assembly, ExaOptions, IntegrationType,
 from .fem import operators as ops
 from .fem.geometry import (adjugate_3x3_cm, det_3x3_cm, grad_calc_cm,
                            jacobians_cm)
-from .fem.space import FESpace, StructuredMap
+from .fem.space import FESpace, IndexMap, StructuredMap
 from .io.checkpoint import load_checkpoint, save_checkpoint
 from .io.postprocess import write_vis_step
+from .mesh.mfem_io import read_mfem_mesh
 from .mesh.voxel import HexMesh, make_cartesian_mesh
-from .models.ecmech import ECMechModel, build_model
+from .models.ecmech import build_model
+from .models.umat import UmatLibrary, UmatModel
 from .solvers import gmg
-from .solvers.krylov import pcg_refined
+from .solvers.krylov import gmres, minres, pcg_refined
 
 # ----------------------------------------------------------------------------
 # Boundary conditions
@@ -128,28 +132,38 @@ class MechSystem:
     device, component-major: nodal vectors flat (3*nn,) component planes,
     quadrature-point fields (k, nq*ne) with point index q*ne + e.
 
-    ``ea_asm_f32`` builds the 24x24 EA blocks in f32 (default: when the
-    model solves its points in mixed precision, as the reference does
-    for Voce); the Newton residual stays f64.  The preconditioner is
-    ``opt.krylov_precond``: "auto" takes GMG where the grid coarsens,
-    else Jacobi."""
+    The element map is the strided ``StructuredMap`` on a voxel brick
+    and the ``IndexMap`` on any other mesh.  The operator is EA (which
+    also serves FULL), PA, or B-bar with EA blocks (B-bar forces EA, as
+    the reference has no PA gradient for it).  PA, B-bar and a model
+    without the component-major point solve (UMAT) are the reference's
+    point-major half (``point_major``), whose numbers the port keeps:
+    the point solve starts cold at every setup, and the operator is
+    built in f64 even where the point solve is mixed precision.
+    Elsewhere ``ea_asm_f32`` builds the 24x24 EA blocks in f32 (default:
+    when the model solves its points in mixed precision, as the
+    reference does for Voce); the Newton residual stays f64.
 
-    def __init__(self, opt: ExaOptions, mesh: HexMesh, model: ECMechModel,
+    The Krylov solver is ``opt.solver``: PCG in mixed precision (f32
+    inner, f64 replay) with the preconditioner ``opt.krylov_precond``
+    ("auto" takes GMG on a structured order-1 grid that coarsens, on
+    the component-major EA path; else Jacobi), or MINRES or GMRES in
+    f64 with Jacobi."""
+
+    def __init__(self, opt: ExaOptions, mesh: HexMesh, model,
                  device="cuda", ea_asm_f32=None):
         self.device = resolve_device(device)
-        if mesh.structure is None:
-            raise NotImplementedError(
-                "only structured voxel meshes are ported (the index-based "
-                "scatter is not)")
-        if opt.assembly == Assembly.PA or \
-                opt.integ_type == IntegrationType.BBAR:
-            raise NotImplementedError("PA and BBar are not ported yet")
-        if opt.solver != KrylovSolver.PCG:
-            raise NotImplementedError("only the PCG Krylov solver is ported")
         self.opt = opt
         self.model = model
         self.fes = FESpace.create(mesh)
-        self.smap = StructuredMap(mesh.structure, mesh.order)
+        self.bbar = opt.integ_type == IntegrationType.BBAR
+        self.pa = opt.assembly == Assembly.PA and not self.bbar
+        self.point_major = self.bbar or self.pa or model.point_major
+        if mesh.structure is not None:
+            self.emap = StructuredMap(mesh.structure, mesh.order)
+        else:
+            self.emap = IndexMap(self.fes.conn, self.fes.num_nodes,
+                                 device=self.device)
         f64 = torch.float64
         self.dshape = torch.as_tensor(self.fes.ref.dshape, dtype=f64,
                                       device=self.device)
@@ -159,11 +173,16 @@ class MechSystem:
         self.ne = self.fes.num_elems
         self.nq = self.fes.nqpts
         self.npts = self.ne * self.nq
-        self.ea_asm_f32 = (model.evptn.mixed_precision if ea_asm_f32 is None
-                           else bool(ea_asm_f32))
+        mixed = getattr(getattr(model, "evptn", None), "mixed_precision",
+                        False)
+        self.ea_asm_f32 = not self.point_major and (
+            mixed if ea_asm_f32 is None else bool(ea_asm_f32))
         self.gmg_meta = None
         kind = opt.krylov_precond
-        if kind in ("gmg", "auto") and self.fes.ref.nnodes == 8:
+        eligible = (mesh.structure is not None and self.fes.ref.nnodes == 8
+                    and opt.solver == KrylovSolver.PCG
+                    and not self.point_major)
+        if kind in ("gmg", "auto") and eligible:
             meta = gmg.GMGMeta(mesh.structure)
             if meta.usable:
                 self.gmg_meta = meta
@@ -171,8 +190,8 @@ class MechSystem:
                 print("gmg preconditioner unavailable (grid does not "
                       "coarsen); using Jacobi")
         elif kind == "gmg":
-            print("gmg preconditioner requires an order-1 mesh; using "
-                  "Jacobi")
+            print("gmg preconditioner requires PCG on the component-major "
+                  "EA path on a structured order-1 mesh; using Jacobi")
         self.precond_kind = "gmg" if self.gmg_meta is not None else "jacobi"
         self.last_newton_stats = {}
 
@@ -220,50 +239,74 @@ class MechSystem:
         L = grad_calc_cm(el_v, self.dshape, adjugate_3x3_cm(J), det_3x3_cm(J))
         return L.reshape(3, 3, self.npts)
 
+    def _point_update(self, v, x_end, state, dt, nsub, x_warm, warm_ok,
+                      compute_tangent):
+        """Geometry and the material update at every point; the
+        point-major half starts each point solve cold."""
+        el_x = self.emap.gather(x_end)
+        el_v = self.emap.gather(v)
+        if self.point_major:
+            x_warm, warm_ok = None, False
+        out = self.model.model_setup_cm(
+            dt, self._vgrad(el_x, el_v), state,
+            compute_tangent=compute_tangent, nsub=nsub, x_warm=x_warm,
+            warm_ok=warm_ok, with_solution=True)
+        return el_x, out
+
+    def _force(self, el_x, stress):
+        stress_q = stress.reshape(6, self.nq, self.ne)
+        if self.bbar:
+            return ops.residual_force_bbar_cm(el_x, self.dshape, self.qwts,
+                                              stress_q)
+        return ops.residual_force_cm(el_x, self.dshape, self.qwts, stress_q)
+
     def setup(self, v, x_beg, state, dt, ess, advance_coords, nsub, x_warm,
               warm_ok):
-        """Residual, EA blocks, diagonal, stress, end state and the
-        point-solve solution at velocity iterate v."""
+        """Residual, operator data (EA blocks or the PA tensor), diagonal,
+        stress, end state and the point-solve solution (None on the
+        point-major half: it carries no warm start) at velocity iterate
+        v."""
         x_end = x_beg + dt * v if advance_coords else x_beg
-        el_x = self.smap.gather(x_end)
-        el_v = self.smap.gather(v)
-        stress, state_end, c6, x_sol = self.model.model_setup_cm(
-            dt, self._vgrad(el_x, el_v), state, nsub=nsub, x_warm=x_warm,
-            warm_ok=warm_ok, with_solution=True)
-        stress_q = stress.reshape(6, self.nq, self.ne)
+        el_x, (stress, state_end, c6, x_sol) = self._point_update(
+            v, x_end, state, dt, nsub, x_warm, warm_ok, True)
         c6_q = c6.reshape(6, 6, self.nq, self.ne)
-        force = ops.residual_force_cm(el_x, self.dshape, self.qwts, stress_q)
         nen = self.fes.ref.nnodes
-        if self.ea_asm_f32 and el_x.dtype == torch.float64:
+        args = (el_x, self.dshape, self.qwts, c6_q, dt)
+        if self.pa:
+            k_data = ops.assemble_pa_gradient_cm(*args)
+            dloc = ops.pa_diagonal_cm(*args)
+        elif self.bbar:
+            k_data = ops.assemble_ea_gradient_bbar_cm(*args)
+            dloc = ops.ea_diagonal_cm(k_data, nen)
+        elif self.ea_asm_f32 and el_x.dtype == torch.float64:
             f32 = torch.float32
-            k_cm = ops.assemble_ea_gradient_cm(
-                el_x.to(f32), self.dshape.to(f32), self.qwts.to(f32),
-                c6_q.to(f32), dt)
-            dloc = ops.ea_diagonal_cm(k_cm, nen).to(el_x.dtype)
+            k_data = ops.assemble_ea_gradient_cm(*(
+                a.to(f32) for a in args[:4]), dt)
+            dloc = ops.ea_diagonal_cm(k_data, nen).to(el_x.dtype)
         else:
-            k_cm = ops.assemble_ea_gradient_cm(el_x, self.dshape, self.qwts,
-                                               c6_q, dt)
-            dloc = ops.ea_diagonal_cm(k_cm, nen)
-        r = torch.where(ess, 0.0, self.smap.scatter_add(force))
-        diag = torch.where(ess, 1.0, self.smap.scatter_add(dloc))
-        return r, k_cm, diag, stress, state_end, x_sol
+            k_data = ops.assemble_ea_gradient_cm(*args)
+            dloc = ops.ea_diagonal_cm(k_data, nen)
+        force = self._force(el_x, stress)
+        r = torch.where(ess, 0.0, self.emap.scatter_add(force))
+        diag = torch.where(ess, 1.0, self.emap.scatter_add(dloc))
+        return r, k_data, diag, stress, state_end, x_sol
 
     def residual_only(self, v, x_beg, state, dt, ess, nsub, x_warm,
                       warm_ok):
-        el_x = self.smap.gather(x_beg + dt * v)
-        el_v = self.smap.gather(v)
-        stress, _, _ = self.model.model_setup_cm(
-            dt, self._vgrad(el_x, el_v), state, compute_tangent=False,
-            nsub=nsub, x_warm=x_warm, warm_ok=warm_ok)
-        force = ops.residual_force_cm(el_x, self.dshape, self.qwts,
-                                      stress.reshape(6, self.nq, self.ne))
-        return torch.where(ess, 0.0, self.smap.scatter_add(force))
+        el_x, (stress, _, _, _) = self._point_update(
+            v, x_beg + dt * v, state, dt, nsub, x_warm, warm_ok, False)
+        return torch.where(ess, 0.0,
+                           self.emap.scatter_add(self._force(el_x, stress)))
 
     def apply_k(self, k_data, x):
-        """K x with the EA blocks (promoted to x's dtype)."""
-        el_y = ops.apply_ea_gradient_cm(k_data.to(x.dtype),
-                                        self.smap.gather(x))
-        return self.smap.scatter_add(el_y)
+        """K x with the operator data (promoted to x's dtype)."""
+        el_u = self.emap.gather(x)
+        if self.pa:
+            el_y = ops.apply_pa_gradient_cm(k_data.to(x.dtype),
+                                            self.dshape.to(x.dtype), el_u)
+        else:
+            el_y = ops.apply_ea_gradient_cm(k_data.to(x.dtype), el_u)
+        return self.emap.scatter_add(el_y)
 
     def grad_matvec(self, k_data, x, ess):
         """y = K x with essential-dof identity rows and columns."""
@@ -271,22 +314,29 @@ class MechSystem:
         return torch.where(ess, x, y)
 
     def krylov_solve(self, k_data, diag, b, ess):
-        """Mixed-precision PCG (f32 inner, f64 replay) with the GMG
-        V-cycle or Jacobi.  Returns (x, iters, converged, rel_red)."""
+        """PCG in mixed precision (f32 inner, f64 replay) with the GMG
+        V-cycle or Jacobi, or MINRES or GMRES in f64 with Jacobi.
+        Returns (x, iters, converged, rel_red)."""
         opt = self.opt
-        f32 = torch.float32
-        k32 = k_data.to(f32)
         dinv = 1.0 / diag
-        dinv32 = dinv.to(f32)
 
         def matvec(x):
             return self.grad_matvec(k_data, x, ess)
 
-        def matvec32(x):
-            return self.grad_matvec(k32, x, ess)
-
         def precond(v):
             return dinv * v
+
+        args = (b, opt.krylov_rel_tol, opt.krylov_abs_tol, opt.krylov_iter)
+        if opt.solver == KrylovSolver.MINRES:
+            return minres(matvec, precond, *args)
+        if opt.solver == KrylovSolver.GMRES:
+            return gmres(matvec, precond, *args)
+        f32 = torch.float32
+        k32 = k_data.to(f32)
+        dinv32 = dinv.to(f32)
+
+        def matvec32(x):
+            return self.grad_matvec(k32, x, ess)
 
         def precond32(v):
             return dinv32 * v
@@ -303,9 +353,7 @@ class MechSystem:
                 return gmg.v_cycle(levels, v.to(f32),
                                    coarse_dense=cd).to(b.dtype)
 
-        return pcg_refined(matvec, precond, matvec32, precond32, b,
-                           opt.krylov_rel_tol, opt.krylov_abs_tol,
-                           opt.krylov_iter)
+        return pcg_refined(matvec, precond, matvec32, precond32, *args)
 
     def vol_avg(self, values_q, el_x, divide=True):
         """Volume-weighted average (or, without ``divide``, the volume
@@ -438,51 +486,43 @@ class Simulation:
     def __init__(self, opt: ExaOptions, workdir: str | None = None,
                  device="cuda"):
         device = resolve_device(device)
-        unported = [name for name, on in (
-            ("UMAT materials", opt.mech_type != MechType.EXACMECH),
-            ("mesh files", opt.mesh_type != MeshType.AUTO),
-            ("precision other than f64", opt.precision != "f64"),
-        ) if on]
-        if unported:
-            raise NotImplementedError("not ported yet: "
-                                      + ", ".join(unported))
+        if opt.precision != "f64":
+            raise NotImplementedError(
+                "not ported yet: precision other than f64")
         self.opt = opt
         self.workdir = workdir or os.getcwd()
-        gpath = opt.abspath(opt.grain_map)
-        gmap = np.loadtxt(gpath).reshape(-1) \
-            if opt.cp and os.path.exists(gpath) else None
-        self.mesh = make_cartesian_mesh(
-            opt.nxyz, opt.mxyz, order=opt.order, grain_map=gmap,
-            ref_levels=opt.ser_ref_levels + opt.par_ref_levels)
+        levels = opt.ser_ref_levels + opt.par_ref_levels
+        if opt.mesh_type == MeshType.AUTO:
+            gpath = opt.abspath(opt.grain_map)
+            gmap = np.loadtxt(gpath).reshape(-1) \
+                if opt.cp and os.path.exists(gpath) else None
+            self.mesh = make_cartesian_mesh(
+                opt.nxyz, opt.mxyz, order=opt.order, grain_map=gmap,
+                ref_levels=levels)
+        else:  # "other" or "cubit": an MFEM mesh file
+            self.mesh = read_mfem_mesh(opt.abspath(opt.mesh_file),
+                                       ref_levels=levels, order=opt.order)
         props = np.loadtxt(opt.abspath(opt.props_file)).reshape(-1)
         if props.size != opt.nProps:
             raise ValueError(f"props file has {props.size} values, expected "
                              f"{opt.nProps}")
         self.props = props
-        self.model = build_model(opt, props)
+        if opt.mech_type == MechType.UMAT:
+            # crystal UMATs carry the per-grain orientation rows inside
+            # the state variables (spliced in below)
+            self._ori_stride = {OriType.QUAT: 4, OriType.EULER: 3}.get(
+                opt.ori_type, opt.grain_custom_stride) if opt.cp else 0
+            self.model = UmatModel(
+                lib=UmatLibrary(opt.abspath(opt.umat_library)), props=props,
+                num_user_state=opt.numStateVars + self._ori_stride,
+                temp_k=opt.temp_k)
+        else:
+            self.model = build_model(opt, props)
         self.system = MechSystem(opt, self.mesh, self.model, device=device)
         sysm = self.system
-        nq = sysm.nq
-
-        ori = np.loadtxt(opt.abspath(opt.ori_file)).reshape(-1)
-        if opt.ori_type == OriType.QUAT or (
-                opt.ori_type == OriType.CUSTOM
-                and opt.grain_custom_stride == 4
-                and opt.grain_statevar_offset == self.model.IND_QUATS):
-            quats = ori.reshape(opt.ngrains, 4)
-            quats = quats / np.linalg.norm(quats, axis=1, keepdims=True)
-        elif opt.ori_type == OriType.EULER:
-            quats = _euler_to_quat(ori.reshape(opt.ngrains, 3))
-        else:
-            raise ValueError(
-                "ExaCMech models require quaternion orientation data in the "
-                f"history quaternion slot; got ori_type={opt.ori_type} "
-                f"stride={opt.grain_custom_stride} "
-                f"loc={opt.grain_statevar_offset}")
-        grain_ids = self.mesh.elem_attr.astype(int) - 1
-        pt_quats = np.repeat(quats[grain_ids], nq, axis=0)
-        state0 = self.model.init_state(pt_quats).reshape(sysm.ne, nq, -1)
-        self.state = sysm.to_state(state0)
+        state0 = (self._umat_state() if opt.mech_type == MechType.UMAT
+                  else self._ecmech_state())
+        self.state = sysm.to_state(state0.reshape(sysm.ne, sysm.nq, -1))
         self.stress = torch.zeros((6, sysm.npts), dtype=torch.float64,
                                   device=sysm.device)
 
@@ -514,6 +554,58 @@ class Simulation:
         self.vis_entries = []
         self.visualize = (opt.visit or opt.conduit or opt.paraview
                           or opt.adios2)
+
+    def _ecmech_state(self):
+        """Initial point-major state: the orientation file's quaternions
+        per grain in the model's own initial history (ExaCMech
+        overwrites every other slot of the state file)."""
+        opt = self.opt
+        ori = np.loadtxt(opt.abspath(opt.ori_file)).reshape(-1)
+        if opt.ori_type == OriType.QUAT or (
+                opt.ori_type == OriType.CUSTOM
+                and opt.grain_custom_stride == 4
+                and opt.grain_statevar_offset == self.model.IND_QUATS):
+            quats = ori.reshape(opt.ngrains, 4)
+            quats = quats / np.linalg.norm(quats, axis=1, keepdims=True)
+        elif opt.ori_type == OriType.EULER:
+            quats = _euler_to_quat(ori.reshape(opt.ngrains, 3))
+        else:
+            raise ValueError(
+                "ExaCMech models require quaternion orientation data in the "
+                f"history quaternion slot; got ori_type={opt.ori_type} "
+                f"stride={opt.grain_custom_stride} "
+                f"loc={opt.grain_statevar_offset}")
+        grain_ids = self.mesh.elem_attr.astype(int) - 1
+        return self.model.init_state(
+            np.repeat(quats[grain_ids], self.system.nq, axis=0))
+
+    def _umat_state(self):
+        """Initial point-major UMAT state: F = I, zero stress, and the
+        state file's values at every point, with a crystal UMAT's
+        orientation rows spliced in at ``grain_statevar_offset`` (< 0:
+        at the end)."""
+        opt = self.opt
+        nq, npts = self.system.nq, self.system.npts
+        sv = np.loadtxt(opt.abspath(opt.state_file)).reshape(-1)
+        if sv.size != opt.numStateVars:
+            raise ValueError(f"state file has {sv.size} values, expected "
+                             f"{opt.numStateVars}")
+        if opt.cp:
+            ori = np.loadtxt(opt.abspath(opt.ori_file)).reshape(
+                opt.ngrains, self._ori_stride)
+            loc = opt.grain_statevar_offset
+            if loc < 0:
+                loc = sv.size
+            per_grain = np.concatenate(
+                [np.tile(sv[:loc], (opt.ngrains, 1)), ori,
+                 np.tile(sv[loc:], (opt.ngrains, 1))], axis=1)
+            grain_ids = self.mesh.elem_attr.astype(int) - 1
+            statev0 = np.repeat(per_grain[grain_ids], nq, axis=0)
+        else:
+            statev0 = np.tile(sv, (npts, 1))
+        state0 = self.model.init_state(npts=npts)
+        state0[:, 15:] = statev0
+        return state0
 
     def update_velocity(self):
         """Essential velocities (and velocity-gradient BCs) into v."""
@@ -630,23 +722,27 @@ class Simulation:
         def row(values):
             return " ".join(f"{v:.6g}" for v in values.cpu().numpy()) + "\n"
 
-        el_x = sysm.smap.gather(self.x_cur)
+        el_x = sysm.emap.gather(self.x_cur)
         self._append_file(opt.avg_stress_fname, row(sysm.vol_avg(
             self.stress.reshape(6, sysm.nq, -1), el_x)))
         if not opt.additional_avgs:
             return
-        off, _ = self.model.qf_mapping["pl_work"]
-        self._append_file(opt.avg_pl_work_fname, row(sysm.vol_avg(
-            self.state[off:off + 1].reshape(1, sysm.nq, -1), el_x,
-            divide=False)))
+        ecmech = opt.mech_type == MechType.EXACMECH
+        if ecmech:  # a UMAT reports no plastic work
+            off, _ = self.model.qf_mapping["pl_work"]
+            self._append_file(opt.avg_pl_work_fname, row(sysm.vol_avg(
+                self.state[off:off + 1].reshape(1, sysm.nq, -1), el_x,
+                divide=False)))
         # average deformation gradient F = d x_cur / d X over the
         # reference volume, as a column-major 9-vector
-        el_X = sysm.smap.gather(self.x_ref)
+        el_X = sysm.emap.gather(self.x_ref)
         Jref = jacobians_cm(el_X, sysm.dshape)
         F = grad_calc_cm(el_x, sysm.dshape, adjugate_3x3_cm(Jref),
                          det_3x3_cm(Jref))  # (3, 3, nq, ne)
         self._append_file(opt.avg_def_grad_fname, row(sysm.vol_avg(
             F.transpose(0, 1).reshape(9, sysm.nq, -1), el_X)))
+        if not ecmech:  # nor a plastic deformation rate
+            return
         # plastic deformation rate from the state the step began from,
         # column-major (0, 4, 8, 5, 2, 1) -> svec
         dp = self.model.dp_mat_cm(getattr(self, "state_prev", self.state))

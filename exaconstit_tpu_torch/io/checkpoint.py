@@ -4,8 +4,10 @@ Port of ``exaconstit_tpu.io.checkpoint`` with the same archive: one
 compressed ``.npz`` holding ``x_beg`` and ``v`` (nn, 3), ``state`` and
 ``state_prev`` (ne, nq, num_state), ``stress`` (ne, nq, 6), ``t``, ``ti``,
 ``dt_auto_cur`` and ``bc_epoch``, all in the host's point-major shapes
-(the device layout is a ``MechSystem`` detail).  A checkpoint written by
-either package resumes in the other.  All simulation state is explicit,
+(the device layout is a ``MechSystem`` detail), whatever the mesh (voxel
+brick or mesh file) and the model (an ExaCMech history or a UMAT's F,
+stress and user state).  A checkpoint written by either package resumes
+in the other.  All simulation state is explicit,
 so a resumed run repeats the uninterrupted one exactly.
 """
 

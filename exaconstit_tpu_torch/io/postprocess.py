@@ -4,7 +4,9 @@ Port of ``exaconstit_tpu.io.postprocess``: every quadrature field is
 volume-averaged per element; the ExaCMech state fields come out of the
 ``qf_mapping`` offsets; quaternions are re-normalized; ``light_up`` adds
 the element centroid and the full elastic strain in the crystal frame
-(for lattice-strain post-processing).  The averages are computed on the
+(for lattice-strain post-processing).  A UMAT state gives its
+deformation gradient and its user state variables instead (the JAX
+package's dump knows only the ExaCMech names).  The averages are computed on the
 simulation's device from its component-major fields and leave it in one
 transfer per dump.
 """
@@ -32,7 +34,7 @@ def compute_element_fields(sim, light_up=False):
     sysm = sim.system
     nq = sysm.nq
     qmap = sim.model.qf_mapping
-    el_x = sysm.smap.gather(sim.x_cur)  # (3, nen, ne)
+    el_x = sysm.emap.gather(sim.x_cur)  # (3, nen, ne)
     wts = ops.quad_point_volumes_cm(el_x, sysm.dshape, sysm.qwts)
 
     s = element_average(sim.stress.reshape(6, nq, -1), wts)
@@ -46,18 +48,26 @@ def compute_element_fields(sim, light_up=False):
         off, n = qmap[name]
         return state[off:off + n]
 
-    q = part("quats")
     fields = {
         "Stress": s,
         "VonMisesStress": von_mises[None],
         "HydrostaticStress": s[:3].mean(dim=0, keepdim=True),
         "ElementVolume": torch.sum(wts, dim=0, keepdim=True),
-        "DpEff": part("shrateEff"),
-        "EffPlasticStrain": part("shrEff"),
-        "Hardness": part("hardness"),
-        "ShearRate": part("gdot"),
-        "LatticeOrientation": q / torch.linalg.vector_norm(q, dim=0),
     }
+    if "def_grad" in qmap:  # a UMAT state
+        fields["DeformationGradient"] = part("def_grad")
+        if qmap["statev"][1]:
+            fields["StateVariables"] = part("statev")
+        light_up = False  # the lattice-strain fields are ExaCMech's
+    else:
+        q = part("quats")
+        fields.update({
+            "DpEff": part("shrateEff"),
+            "EffPlasticStrain": part("shrEff"),
+            "Hardness": part("hardness"),
+            "ShearRate": part("gdot"),
+            "LatticeOrientation": q / torch.linalg.vector_norm(q, dim=0),
+        })
     if light_up:
         # element centroids on the current configuration
         shape = torch.as_tensor(sysm.fes.ref.shape, dtype=el_x.dtype,

@@ -13,6 +13,10 @@ dict of numpy arrays and scalars that ``ecmech_from_reference`` reads:
 * ``solver_tol``, ``fast_tol``, ``refine_iters``, ``solver_max_iter``,
   ``substep_cap``, ``max_substeps``, ``h_gd_blend``,
   ``mixed_precision``, ``temp_k``.
+
+A UMAT model flattens to ``umat.library`` (the shared library's path),
+``umat.props``, ``umat.num_user_state`` and ``temp_k``, which
+``umat_from_reference`` reads.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from .eos import EosConst
 from .evptn import EvptnModel
 from . import kinetics
 from .slip_geom import SlipGeom
+from .umat import UmatLibrary, UmatModel
 
 _INT_FIELDS = ("refine_iters", "solver_max_iter", "max_substeps")
 _FLOAT_FIELDS = ("solver_tol", "fast_tol", "substep_cap", "h_gd_blend")
@@ -47,6 +52,11 @@ def arrays_from_model(model) -> dict:
     """Flatten a model of either package into that dict.  Reads
     attributes only, so the caller's model object brings its own package
     with it and none is imported here."""
+    if hasattr(model, "lib"):  # a UMAT: its library's ctypes handle
+        return {"umat.library": model.lib.lib._name,
+                "umat.props": np.asarray(model.props, dtype=np.float64),
+                "umat.num_user_state": int(model.num_user_state),
+                "temp_k": float(model.temp_k)}
     ev = model.evptn
     kin_cls = _KINETICS[type(ev.kinetics).__name__]
     arrays = {"elast.C_dev": ev.elast.C_dev, "elast.bulk": ev.elast.bulk,
@@ -79,6 +89,14 @@ def ecmech_from_reference(arrays: dict) -> ECMechModel:
                        **extra)
     return ECMechModel(evptn=evptn, temp_k=float(arrays["temp_k"]),
                        nslip=slip.nslip, n_h=kin.n_h)
+
+
+def umat_from_reference(arrays: dict) -> UmatModel:
+    """Build the port's UMAT model on the same shared library."""
+    return UmatModel(lib=UmatLibrary(str(arrays["umat.library"])),
+                     props=np.asarray(arrays["umat.props"], float),
+                     num_user_state=int(arrays["umat.num_user_state"]),
+                     temp_k=float(arrays["temp_k"]))
 
 
 def state_from_reference(state_cm, device) -> torch.Tensor:

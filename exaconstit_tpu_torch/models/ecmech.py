@@ -106,6 +106,22 @@ class ECMechModel:
         n = math.floor(dt * rate_ref / cap)
         return int(min(max(n, 1), self.evptn.max_substeps))
 
+    # the reference runs these models on its component-major path
+    point_major = False
+
+    def model_setup(self, dt, vgrad, state_beg, compute_tangent=True,
+                    nsub=None):
+        """The reference's point-major contract over ``model_setup_cm``:
+        vgrad (N, 3, 3), state_beg (N, num_state) -> (stress (N, 6),
+        state_end (N, num_state), tangent (N, 6, 6) or None).  The point
+        solve starts cold, as the reference's point-major path does."""
+        stress, state_end, c6 = self.model_setup_cm(
+            dt, vgrad.permute(1, 2, 0).contiguous(),
+            state_beg.T.contiguous(), compute_tangent=compute_tangent,
+            nsub=nsub)
+        return (stress.T, state_end.T,
+                None if c6 is None else c6.permute(2, 0, 1))
+
     def model_setup_cm(self, dt, vgrad_cm, state_beg_cm,
                        compute_tangent=True, nsub=None, x_warm=None,
                        warm_ok=False, with_solution=False):

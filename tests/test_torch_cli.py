@@ -4,7 +4,9 @@ port's independence from JAX.
 Both CLIs run the same in-repo FCC Voce case (``exaconstit_tpu_torch.
 cases``: a 4^3 voxel mesh, Voronoi grains, uniaxial tension, 2 custom
 steps) written into ``tmp_path``, with the production defaults on both
-sides; their average-stress files agree at the Newton tolerance."""
+sides; their average-stress files agree at the Newton tolerance.  So
+do the case's variants: a mesh file with EA or PA, B-bar, GMRES and
+MINRES."""
 
 import ast
 import os
@@ -166,7 +168,8 @@ def test_port_imports_no_jax(banned):
     assert len(files) > 25
     names = {str(f.relative_to(PKG)) for f in files[:-1]}
     assert {"io/checkpoint.py", "io/postprocess.py", "io/vtk.py",
-            "io/hdf5_dc.py", "models/kinetics.py", "cases.py"} <= names
+            "io/hdf5_dc.py", "models/kinetics.py", "models/umat.py",
+            "mesh/mfem_io.py", "cases.py"} <= names
     bad = [f"{f.relative_to(PKG.parent)}: {mod}" for f in files
            for mod in _imported_modules(f)
            if mod == banned or mod.startswith(banned + ".")]
@@ -189,3 +192,27 @@ def test_cases_voronoi_grain_map(tmp_path):
     np.testing.assert_array_equal(ga, gb)
     q = np.loadtxt(os.path.join(os.path.dirname(a), "quats.ori"))
     np.testing.assert_allclose(np.linalg.norm(q, axis=1), 1.0, rtol=1e-12)
+
+
+VARIANTS = {"mesh_file_EA": dict(mesh_file=True),
+            "mesh_file_PA": dict(mesh_file=True, assembly="PA"),
+            "BBar": dict(integ_model="BBAR"),
+            "GMRES": dict(krylov_solver="GMRES"),
+            "MINRES": dict(krylov_solver="MINRES")}
+
+
+@pytest.mark.parametrize("name", VARIANTS)
+def test_cli_variants_match_reference_cli(name, tmp_path, monkeypatch):
+    """The configurations beyond the voxel EA path through both CLIs at
+    the case defaults (Newton rel 5e-5, Krylov rel 1e-7): a mesh file
+    with EA or PA, B-bar, GMRES, MINRES; rel 1e-6, the Newton tolerance
+    level."""
+    toml = write_voce_case(str(tmp_path / "case"), (4, 4, 4), (0.1, 0.2),
+                           ngrains=20, seed=0, **VARIANTS[name])
+    s_t = _run_cli(T_CLI.main, ["-opt", toml, "-q", "--device", "cpu"],
+                   tmp_path / "torch", monkeypatch)
+    s_j = _run_cli(J_CLI.main, ["-opt", toml, "-q"], tmp_path / "jax",
+                   monkeypatch)
+    assert s_t.shape == s_j.shape == (2, 6)
+    rel = np.max(np.abs(s_t - s_j)) / np.max(np.abs(s_j))
+    assert rel < 1e-6

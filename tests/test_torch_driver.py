@@ -13,6 +13,11 @@ time stepping (the same dt sequence, average stress to 1e-6) with the
 additional averages (every file to 1e-6 of its largest entry, the
 plastic deformation rate lagging one step), the retry logic of the
 automatic step on a stubbed Newton solve, and what is still refused.
+
+And the point-major half: ``model_setup`` against the reference's
+point-major update (pure f64, 1e-10), and the case from a mesh file
+(EA, PA), with B-bar, GMRES and MINRES through both packages'
+``Simulation`` with Newton and Krylov driven to rel 1e-10 (1e-8).
 """
 
 import numpy as np
@@ -28,6 +33,8 @@ from exaconstit_tpu.driver import Simulation as JSimulation
 from exaconstit_tpu_torch import cases
 from exaconstit_tpu_torch.config import options as T_OPT
 from exaconstit_tpu_torch.driver import MechSystem, Simulation
+from exaconstit_tpu_torch.fem.space import IndexMap
+from exaconstit_tpu_torch.models.umat import UmatModel
 from exaconstit_tpu_torch.mesh.voxel import make_cartesian_mesh
 from exaconstit_tpu_torch.models.ecmech import build_model
 from exaconstit_tpu_torch.solvers import gmg as T_GMG
@@ -217,18 +224,107 @@ def test_auto_dt_retries(tmp_path, fails, ok):
 @pytest.mark.parametrize("what,match", [
     ("umat", "UMAT"), ("mesh", "mesh files"), ("f32", "precision")])
 def test_simulation_still_refuses(tmp_path, what, match):
-    """UMAT materials, mesh files and precisions other than f64 are not
-    ported; everything else the options file can ask for runs."""
+    """Of the three configurations the port refused before (UMAT
+    materials, mesh files, precisions other than f64), only the last is
+    still refused; the other two build, with the element map, operator
+    and model they ask for."""
     toml = cases.write_voce_case(tmp_path / "case", (2, 2, 2), (0.1,),
                                  ngrains=4, additional_avgs=True,
-                                 paraview=True, checkpoint_steps=1)
-    opt = T_OPT.parse_options(toml)
-    Simulation(opt, workdir=str(tmp_path), device="cpu")  # builds
+                                 paraview=True, checkpoint_steps=1,
+                                 mesh_file=what == "mesh")
     if what == "umat":
-        opt.mech_type = T_OPT.MechType.UMAT
-    elif what == "mesh":
-        opt.mesh_type = T_OPT.MeshType.OTHER
-    else:
+        toml = cases.write_umat_case(tmp_path / "umat", (2, 2, 2), (0.1,))
+    opt = T_OPT.parse_options(toml)
+    if what == "f32":
+        Simulation(opt, workdir=str(tmp_path), device="cpu")  # builds
         opt.precision = "f32"
-    with pytest.raises(NotImplementedError, match=match):
-        Simulation(opt, workdir=str(tmp_path), device="cpu")
+        with pytest.raises(NotImplementedError, match=match):
+            Simulation(opt, workdir=str(tmp_path), device="cpu")
+        return
+    sim = Simulation(opt, workdir=str(tmp_path), device="cpu")
+    if what == "umat":
+        assert opt.mech_type == T_OPT.MechType.UMAT
+        assert isinstance(sim.model, UmatModel) and sim.system.point_major
+    else:
+        assert opt.mesh_type == T_OPT.MeshType.OTHER
+        assert sim.mesh.structure is None
+        assert isinstance(sim.system.emap, IndexMap)
+
+
+def test_model_setup_point_major():
+    """The point-major ``model_setup`` (a wrapper over the port's
+    component-major update) against the reference's point-major one
+    (``evptn._outputs_from_solution`` under vmap, ``tangent_cm``), pure
+    f64 on both sides and both cold: stress, end state and tangent to
+    1e-10 rel, at dt 0.1 (one substep) and 1.0 (ten)."""
+    import dataclasses
+
+    from exaconstit_tpu.models.ecmech import build_model as j_build
+    from exaconstit_tpu_torch.models.convert import (arrays_from_model,
+                                                     ecmech_from_reference)
+    opt = J_OPT.ExaOptions()
+    opt.mech_type = J_OPT.MechType.EXACMECH
+    opt.xtal_type = J_OPT.XtalType.FCC
+    opt.slip_type = J_OPT.SlipType.POWERVOCE
+    jm = j_build(opt, graft._VOCE_PROPS)
+    jm = dataclasses.replace(jm, evptn=dataclasses.replace(
+        jm.evptn, mixed_precision=False))
+    tm = ecmech_from_reference(arrays_from_model(jm))
+    assert not tm.evptn.mixed_precision
+    rng = np.random.default_rng(5)
+    n = 64
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    state = jm.init_state(q)
+    L = rng.normal(size=(n, 3, 3)) * 1e-3
+    for dt in (0.1, 1.0):
+        want = jm.model_setup(dt, jnp.asarray(L), jnp.asarray(state))
+        with torch.inference_mode():
+            got = tm.model_setup(dt, torch.tensor(L), torch.tensor(state))
+        for a, b in zip(got, want):
+            assert a.shape == b.shape
+            assert _rel(a.numpy(), b) < 1e-10
+    with torch.inference_mode():
+        out = tm.model_setup(0.1, torch.tensor(L), torch.tensor(state),
+                             compute_tangent=False)
+    assert out[2] is None
+
+
+VARIANTS = {"mesh_file_EA": dict(mesh_file=True),
+            "mesh_file_PA": dict(mesh_file=True, assembly="PA"),
+            "BBar": dict(integ_model="BBAR"),
+            "GMRES": dict(krylov_solver="GMRES"),
+            "MINRES": dict(krylov_solver="MINRES")}
+
+
+@pytest.mark.parametrize("name", VARIANTS)
+def test_simulation_variants_tight(name, tmp_path):
+    """The in-repo Voce case at 4^3 through both packages' ``Simulation``
+    with Newton driven to rel 1e-10 and Krylov to rel 1e-10: a mesh file
+    (the index scatter; EA, or PA with cold point solves and the f64
+    build), B-bar, GMRES and MINRES.  Stress and state to 1e-8 rel."""
+    options = VARIANTS[name]
+    toml = cases.write_voce_case(tmp_path / "case", (4, 4, 4), (0.1, 0.2),
+                                 ngrains=20, **options)
+    out = {}
+    for tag, opts, sim_cls, kw in (("jax", J_OPT, JSimulation, {}),
+                                   ("torch", T_OPT, Simulation,
+                                    {"device": "cpu"})):
+        opt = opts.parse_options(toml)
+        opt.newton_rel_tol, opt.newton_abs_tol = 1e-10, 1e-16
+        opt.krylov_rel_tol = 1e-10
+        wd = tmp_path / tag
+        wd.mkdir()
+        with torch.inference_mode():
+            sim = sim_cls(opt, workdir=str(wd), **kw)
+            sim.run(verbose=False)
+        out[tag] = (sim.system.from_stress(sim.stress),
+                    sim.system.from_state(sim.state))
+        if tag == "torch":
+            sysm = sim.system
+            assert isinstance(sysm.emap, IndexMap) == options.get(
+                "mesh_file", False)
+            assert sysm.point_major == (name in ("mesh_file_PA", "BBar"))
+            assert sysm.precond_kind == "jacobi"
+    for a, b in zip(out["torch"], out["jax"]):
+        assert _rel(a, b) < 1e-8

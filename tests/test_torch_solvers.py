@@ -1,5 +1,7 @@
 """PyTorch port against the JAX package: PCG, mixed-precision PCG and the
-geometric multigrid V-cycle on EA systems built by both packages."""
+geometric multigrid V-cycle on EA systems built by both packages; MINRES
+and GMRES on those and on dense SPD, symmetric indefinite and
+nonsymmetric systems."""
 
 import numpy as np
 import pytest
@@ -230,3 +232,72 @@ def test_pcg_gmg_f64(jax_power_start):
     assert bool(okj) and okt
     assert itt == int(itj) < 30
     assert _rel(xt.numpy(), xj) < 1e-10
+
+
+def _dense_system(kind):
+    """(A, b, precond diagonal or None) as in tests/test_krylov.py."""
+    if kind == "spd":
+        rng = np.random.default_rng(0)
+        A = rng.normal(size=(64, 64))
+        A = A @ A.T + 64 * np.eye(64)
+        return A, rng.normal(size=64), np.diag(A)
+    if kind == "indefinite":
+        rng = np.random.default_rng(3)
+        Q, _ = np.linalg.qr(rng.normal(size=(48, 48)))
+        lam = np.concatenate([np.linspace(1, 10, 40),
+                              -np.linspace(1, 3, 8)])
+        return Q @ np.diag(lam) @ Q.T, rng.normal(size=48), None
+    rng = np.random.default_rng(4)  # nonsymmetric
+    return rng.normal(size=(40, 40)) + 8 * np.eye(40), rng.normal(size=40), \
+        None
+
+
+@pytest.mark.parametrize("solver,kind", [
+    ("minres", "spd"), ("gmres", "spd"), ("minres", "indefinite"),
+    ("gmres", "indefinite"), ("gmres", "nonsymmetric"), ("minres", "ea"),
+    ("gmres", "ea")])
+def test_minres_gmres(solver, kind):
+    """MINRES and GMRES (f64) against the JAX package's: the same
+    iteration counts and solutions to 1e-10 rel, on the dense systems of
+    tests/test_krylov.py and on the masked EA system with Jacobi."""
+    tol, max_iter, kw = 1e-12, 600, {}
+    if kind == "ea":
+        mesh, k, ess, b = ea_system((4, 4, 4), seed=2)
+        j_mv, t_mv, diag, _ = operators(mesh, k, ess)
+        kj, kt = jnp.asarray(k), torch.tensor(k)
+        jmv, tmv = (lambda x: j_mv(kj, x)), (lambda x: t_mv(kt, x))
+        tol = 1e-10
+    else:
+        A, b, diag = _dense_system(kind)
+        Aj, At = jnp.asarray(A), torch.tensor(A)
+        jmv, tmv = (lambda v: Aj @ v), (lambda v: At @ v)
+        if kind == "nonsymmetric":
+            tol, max_iter, kw = 1e-13, 400, dict(restart=20)
+    if diag is None:
+        jpc, tpc = (lambda v: v), (lambda v: v)
+    else:
+        dj, dt = jnp.asarray(1.0 / diag), torch.tensor(1.0 / diag)
+        jpc, tpc = (lambda v: dj * v), (lambda v: dt * v)
+    xj, itj, okj, relj = getattr(J_KRY, solver)(jmv, jpc, jnp.asarray(b),
+                                                tol, 1e-30, max_iter, **kw)
+    xt, itt, okt, relt = getattr(T_KRY, solver)(tmv, tpc, torch.tensor(b),
+                                                tol, 1e-30, max_iter, **kw)
+    assert bool(okj) and okt and relt <= tol and float(relj) <= tol
+    assert itt == int(itj)
+    assert _rel(xt.numpy(), xj) < 1e-10
+
+
+@pytest.mark.parametrize("solver", ["minres", "gmres"])
+def test_minres_gmres_cap_and_zero_rhs(solver):
+    """A capped solve reads unconverged with rel_reduction above the
+    tolerance; a zero right-hand side returns x = 0 after 0 iterations."""
+    A, b, _ = _dense_system("spd")
+    At = torch.tensor(A)
+    fn = getattr(T_KRY, solver)
+    kw = dict(restart=3) if solver == "gmres" else {}
+    x, it, ok, rel = fn(lambda v: At @ v, lambda v: v, torch.tensor(b),
+                        1e-14, 1e-300, 3, **kw)
+    assert it == 3 and not ok and rel > 1e-14
+    x, it, ok, rel = fn(lambda v: At @ v, lambda v: v, torch.zeros(64),
+                        1e-10, 1e-30, 100)
+    assert ok and it == 0 and not x.any()
