@@ -83,7 +83,32 @@ failed check exits non-zero with no result line:
    call, point evaluations (3 setups x points) per second;
 15. ``workflows.run_loading`` at 4^3 on the card against the CPU (rel
    1e-6);
-16. a ``kernels`` JSON line; then the ``ok`` JSON line, last.
+16. a ``kernels`` JSON line; then the ``ok`` JSON line, last (after
+   phase 17);
+17. the slab domain decomposition (``parallel/``): (a) the 32^3 Voce case
+   with ``parallel_mode = "slab"`` and Jacobi through the CLI under
+   torchrun's variables for a world size of 1 (an NCCL process group),
+   ``--shards 4`` (8 z-layers a shard), dt 0.1, 0.2 (phase 9's steps), with
+   the kernel's launch count reset just before and read just after: per
+   step the seconds, Newton and Krylov counts, sub-solves and sigma_zz,
+   held at rel 1e-4 to a one-device run with the same sub-solves (phase
+   5's where they match, else one device forced to the slab's sub-solves:
+   ``SLAB_SZZ_RTOL``); the wall, peak memory, the
+   kernel's ms per launch, the halo exchanges and the bytes each moves, the
+   region split (EXACONSTIT_TPU_REGIONS); which setup layers round
+   differently when a shard is computed alone rather than in the stack
+   (logged); then, in a fresh NCCL group, one f32 matvec, its halo
+   exchange and one dot timed alone, beside the dot with no group and the
+   single device's matvec and dot; (b) ``SlabMechSystem`` against the
+   single-device system at the slab's numerics (Jacobi, the f64 EA build)
+   at 8x8x16 over 4 shards on the card, two steps with Newton at rel 1e-9
+   and Krylov at rel 1e-10: averages rtol 1e-5, stress and state rtol
+   1e-6 / atol 1e-9, velocity atol 1e-9; (c) the card against the CPU at
+   4^3 over 2 shards (rel 1e-6); (d) with two cards or more, 2 NCCL ranks
+   under torchrun, one card each, ``--shards 4``, against (a) on the final
+   checkpoint's arrays (rtol 1e-8, atol 1e-14), and with four cards 4
+   ranks held as (a) is (see ``slab_cards``); with one card it logs that
+   the leg did not run.
 """
 
 import argparse
@@ -93,6 +118,7 @@ import glob
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -133,6 +159,22 @@ VARIANTS = {
     "UMAT": ("umat", {}, 1e-6),
     "f32": ("voce", dict(precision="f32"), 1e-4),
 }
+# The slab path (phase 17): phase 9's steps over 4 shards (8 z-layers a
+# shard at 32^3); the decomposition against one device at 8x8x16
+SLAB_DTS = (0.1, 0.2)
+SLAB_SHARDS = 4
+SLAB_CHECK_GRID = (8, 8, 16)
+SLAB_CHECK_NR_TOLS, SLAB_CHECK_KRYLOV_TOL = (1e-9, 1e-14), 1e-10
+# sigma_zz of a slab run against a one-device run that took the same
+# sub-solves in every step so far: phase 5's where it did, else one device
+# forced to the slab run's sub-solves (``same_structure_szz``).  Whether a first solve converges within 25
+# Newton iterations follows the rounding (ROADMAP C7, C8), and a dt 0.2
+# step solved whole and the same step as two sub-solves of 0.1 differ by
+# rel 1.7e-4 in sigma_zz: two time discretisations
+SLAB_SZZ_RTOL = 1e-4
+# the 2-rank run against one process's 4 stacked shards, on the final
+# checkpoint's arrays (rtol, atol)
+SLAB_RANKS_TOLS = (1e-8, 1e-14)
 # the region names of MechSystem._timed
 REGIONS = ("operator_setup", "line_search", "krylov_solve")
 BCC_STAGE_SIZE = 262_144
@@ -410,15 +452,17 @@ def write_case(ncuts, dts, workdir, family="voce", **options):
     return write(path, ncuts, dts, ngrains=500, seed=0, **options)
 
 
-def run_case(ncuts, dts, device, workdir, family="voce", **options):
+def run_case(ncuts, dts, device, workdir, family="voce", shards=None,
+             **options):
     """Write the in-repo case of ``family`` and run it through
-    ``run_simulation``; returns (sim, average stress rows)."""
+    ``run_simulation`` (over ``shards`` slab shards if given); returns
+    (sim, average stress rows)."""
     from exaconstit_tpu_torch.driver import run_simulation
     toml = write_case(ncuts, dts, workdir, family, **options)
     run_dir = os.path.join(workdir, f"run_{device}")
     os.makedirs(run_dir)
     sim = run_simulation(toml, workdir=run_dir, verbose=False,
-                         device=device)
+                         device=device, shards=shards)
     stress = np.loadtxt(os.path.join(run_dir, "avg_stress.txt"), ndmin=2)
     return sim, stress
 
@@ -538,7 +582,8 @@ def phase_main(workdir):
         f"with / without a lane at max_iter: {median(ms[tail]):.4f} / "
         f"{median(ms[~tail]):.4f}")
     return dict(launches=launches, median_ms=float(np.median(ms)),
-                max_ms=float(ms.max()), szz=stress[:, 2])
+                max_ms=float(ms.max()), szz=stress[:, 2],
+                subdivided=[st["subdivided"] for st in sim.step_stats])
 
 
 def phase_cpu_vs_cuda(workdir, family="voce", label="6", name=None,
@@ -672,12 +717,15 @@ def phase_mtsdd(workdir, dts=MTSDD_DTS, label="7 mtsdd 32^3"):
 
 
 class RunRecorder:
-    """Wraps ``Simulation.run`` (to capture the run's ``Simulation``) and
-    ``MechSystem.apply_k`` (counted) at class level for one run."""
+    """Wraps ``Simulation.run`` (to capture the run's ``Simulation`` and,
+    with ``final``, its end state as the checkpoint holds it, gathered
+    while the process group is up) and ``MechSystem.apply_k`` (counted) at
+    class level for one run."""
 
-    def __init__(self):
+    def __init__(self, final=False):
         self.applies = 0
-        self.sim = None
+        self.sim = self.backend = None
+        self.keep_final, self.final = final, None
 
     def __enter__(self):
         from exaconstit_tpu_torch import driver
@@ -691,7 +739,12 @@ class RunRecorder:
 
         def run(sim, *args, **kw):
             rec.sim = sim
-            return rec.saved_run(sim, *args, **kw)
+            rec.backend = (torch.distributed.get_backend()
+                           if torch.distributed.is_initialized() else None)
+            out = rec.saved_run(sim, *args, **kw)
+            if rec.keep_final:
+                rec.final = end_state(sim)
+            return out
 
         self.cls.apply_k = apply_k
         self.sim_cls.run = run
@@ -702,13 +755,24 @@ class RunRecorder:
         self.sim_cls.run = self.saved_run
 
 
-def run_cli(toml, run_dir, *args):
+def end_state(sim):
+    """A run's end state in the host's global shapes, as its checkpoint
+    holds it, without the point solve's iteration counts (state slot 3,
+    which follow the batch)."""
+    sysm = sim.system
+    state = sysm.from_state(sim.state).copy()
+    state[:, :, 3] = 0.0
+    return dict(x_beg=sysm.from_node(sim.x_beg), v=sysm.from_node(sim.v),
+                stress=sysm.from_stress(sim.stress), state=state)
+
+
+def run_cli(toml, run_dir, *args, final=False):
     """The CLI entry point on ``toml`` from ``run_dir`` on the card,
     recorded; returns (recorder, wall seconds)."""
     from exaconstit_tpu_torch import cli
     os.makedirs(run_dir, exist_ok=True)
     cwd = os.getcwd()
-    with RunRecorder() as rec:
+    with RunRecorder(final) as rec:
         os.chdir(run_dir)
         try:
             t0 = time.perf_counter()
@@ -1019,8 +1083,533 @@ def phase_loading(workdir):
         f"the card, {secs['cpu']:.1f} s on the CPU)")
 
 
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class ExchangeRecorder:
+    """Wraps ``SlabMap.exchange_add`` for one run: the halo exchanges and
+    the bytes they move across the shard boundaries."""
+
+    def __enter__(self):
+        from exaconstit_tpu_torch.parallel.slab import SlabMap
+        self.cls, self.saved = SlabMap, SlabMap.exchange_add
+        self.calls, self.nbytes = 0, 0
+        rec = self
+
+        def exchange_add(smap, y):
+            rec.calls += 1
+            rec.nbytes += (smap.layout.n_shards - 1) * smap.halo_bytes(
+                y.dtype)
+            return rec.saved(smap, y)
+
+        SlabMap.exchange_add = exchange_add
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.exchange_add = self.saved
+
+
+def same_structure_szz(toml, run_dir, structure):
+    """sigma_zz per step of ``toml`` on one device, step k forced to take
+    ``structure[k]`` sub-solves: its whole solve and every coarser retry
+    report failure without running.  A forced sub-solve may still fail
+    and be retried finer (C7), so the run is tried at the slab's numerics
+    (Jacobi, the f64 EA build) and then at phase 5's (GMG, the f32 EA
+    build); fails unless one of them took exactly those sub-solves."""
+    from exaconstit_tpu_torch import set_precision_policy
+    from exaconstit_tpu_torch.config.options import parse_options
+    from exaconstit_tpu_torch.driver import Simulation
+    set_precision_policy()
+    tried = []
+    for name, precond, ea_f32 in (("the slab's", "jacobi", False),
+                                  ("phase 5's", "auto", True)):
+        wd = os.path.join(run_dir, precond)
+        os.makedirs(wd)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            opt = parse_options(toml)
+            opt.krylov_precond = precond
+            sim = Simulation(opt, workdir=wd, device="cuda")
+            sysm = sim.system
+            sysm.ea_asm_f32 = ea_f32
+            solve = sysm.newton_solve
+
+            def newton_solve(v, x_beg, state, dt, *args, **kw):
+                k = len(sim.step_stats)  # the step being solved
+                if dt > SLAB_DTS[k] / structure[k] * (1 + 1e-9):
+                    return v, None, None, False, 0, None
+                return solve(v, x_beg, state, dt, *args, **kw)
+
+            sysm.newton_solve = newton_solve
+            sim.run(verbose=False)
+        took = [st["subdivided"] for st in sim.step_stats]
+        szz = np.loadtxt(os.path.join(wd, "avg_stress.txt"), ndmin=2)[:, 2]
+        log(f"[17 slab 32^3] one device at {name} numerics "
+            f"({sysm.precond_kind}) forced to {list(structure)} sub-solves: "
+            f"took {took}, last NR "
+            f"{[st['nr_iters'] for st in sim.step_stats]}, szz "
+            f"{[f'{z:.6g}' for z in szz]} ({time.perf_counter() - t0:.1f} s)")
+        check(sim.parallel_mode == "single",
+              f"the one-device reference ran {sim.parallel_mode}")
+        if took == list(structure):
+            return szz
+        tried.append(f"{name} numerics took {took}")
+    raise SmokeFailure(f"no one-device run took the sub-solves "
+                       f"{list(structure)}: {'; '.join(tried)}")
+
+
+def szz_gaps(szz, structure, leg_a):
+    """Per step (rel gap, name) of a slab run's sigma_zz to a one-device
+    run with the same sub-solves in every step so far: phase 5's, or
+    ``same_structure_szz`` (run once per structure, kept in leg_a)."""
+    main, refs = leg_a["main_path"], leg_a["refs"]
+    out = []
+    for k in range(len(SLAB_DTS)):
+        if main is not None and MAIN_DTS[:k + 1] == SLAB_DTS[:k + 1] \
+                and list(main["subdivided"][:k + 1]) == structure[:k + 1]:
+            want, name = main["szz"][k], "phase 5"
+        else:
+            key = tuple(structure)
+            if key not in refs:
+                refs[key] = same_structure_szz(leg_a["toml"], os.path.join(
+                    leg_a["workdir"], f"one_{len(refs)}"), key)
+            want, name = refs[key][k], f"one device forced to {list(key)}"
+        out.append((abs(szz[k] - want) / abs(want), name))
+    return out
+
+
+def check_szz(label, gaps):
+    for k, (rel, name) in enumerate(gaps):
+        check(rel <= SLAB_SZZ_RTOL, f"{label}: sigma_zz of step {k + 1} "
+              f"differs from {name}'s by rel {rel:.3e} > {SLAB_SZZ_RTOL:g}")
+
+
+def slab_cli(workdir, main_path=None):
+    """Leg (a): the 32^3 Voce case over SLAB_SHARDS slab shards through
+    the CLI in an NCCL process group of one rank; ``main_path`` phase 5's
+    result, if it ran."""
+    from exaconstit_tpu_torch.solvers import dogleg_cuda as dc
+    toml = write_case((32, 32, 32), SLAB_DTS, workdir, "voce",
+                      parallel_mode="slab", precond="jacobi")
+    run_dir = os.path.join(workdir, "run_cuda")
+    torch.cuda.reset_peak_memory_stats()
+    launch_env = dict(EXACONSTIT_TPU_DIST="1", RANK="0", WORLD_SIZE="1",
+                      LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(free_port()))
+    with LaunchRecorder(dc.KERNEL) as krec, ExchangeRecorder() as xrec, \
+            env(EXACONSTIT_TPU_REGIONS="1", **launch_env):
+        dc.KERNEL.launches = 0
+        rec, wall = run_cli(toml, run_dir, "--shards", str(SLAB_SHARDS),
+                            final=True)
+        launches = dc.KERNEL.launches
+    peak = torch.cuda.max_memory_allocated()
+    ms, _, _ = krec.read()
+    sim = rec.sim
+    sysm = sim.system
+    nsteps = len(SLAB_DTS)
+    stress = np.loadtxt(os.path.join(run_dir, "avg_stress.txt"), ndmin=2)
+    check(rec.backend == "nccl" and sim.parallel_mode == "slab"
+          and sysm.layout.distributed and sysm.layout.n_shards
+          == SLAB_SHARDS, f"the slab leg ran as {sim.parallel_mode} on "
+          f"backend {rec.backend}")
+    check(stress.shape == (nsteps, 6) and np.isfinite(stress).all(),
+          f"slab average stress rows {stress.shape} or not finite")
+    check(len(sim.step_stats) == nsteps, "a slab step did not finish")
+    check(launches > 0 and len(ms) == launches,
+          f"the slab path launched the dogleg kernel {launches} times "
+          f"({len(ms)} recorded)")
+    structure = [st["subdivided"] for st in sim.step_stats]
+    leg_a = dict(launches=launches, wall=wall, stress=stress, toml=toml,
+                 final=rec.final, structure=structure, workdir=workdir,
+                 main_path=main_path, refs={},
+                 median_ms=float(np.median(ms)), max_ms=float(ms.max()),
+                 step_times=list(sim.step_times))
+    gaps = szz_gaps(stress[:, 2], structure, leg_a)
+    for k, (st, secs) in enumerate(zip(sim.step_stats, sim.step_times)):
+        kr = st["krylov_iters"]
+        rel, name = gaps[k]
+        log(f"[17 slab 32^3] step {k + 1} dt {SLAB_DTS[k]}: {secs:.2f} s, "
+            f"first NR {st['first_nr']}, {st['subdivided']} sub-solve(s), "
+            f"last NR {st['nr_iters']}, Krylov/NR {kr} (mean "
+            f"{np.mean(kr) if kr else 0:.1f}); szz {stress[k, 2]:.6g}, gap "
+            f"to {name}'s {rel:.3e} (bound {SLAB_SZZ_RTOL:g})")
+    check_szz("leg (a)", gaps)
+    emap = sysm.emap
+    per_f64, per_f32 = (emap.halo_bytes(d) for d in (torch.float64,
+                                                     torch.float32))
+    boundaries = SLAB_SHARDS - 1
+    log(f"[17 slab 32^3] {sysm.npts} points over {SLAB_SHARDS} shards "
+        f"(n_loc {sysm.part.n_loc}, m_halo {sysm.part.m_halo}), backend "
+        f"{rec.backend}, precond {sysm.precond_kind}, wall {wall:.2f} s "
+        f"for {nsteps} steps, peak memory {peak / 2**30:.3f} GiB; kernel "
+        f"launches {launches}, device ms per launch median "
+        f"{float(np.median(ms)):.4f}, max {float(ms.max()):.4f}")
+    log(f"[17 slab 32^3] halo exchange: {xrec.calls} exchanges moving "
+        f"{xrec.nbytes / 2**20:.2f} MiB across the {boundaries} shard "
+        f"boundaries; per matvec {per_f64} B per boundary in f64 "
+        f"({boundaries * per_f64} B in all), {per_f32} B in f32; a "
+        f"replicated-node all-reduce would move {3 * sysm.nn * 8} B in f64")
+    region_split("17 slab 32^3", sim, wall)
+    slab_batch_rounding(sim, SLAB_DTS[-1])
+    del rec, sim, sysm
+    slab_pieces(toml, {**launch_env, "MASTER_PORT": str(free_port())})
+    return leg_a
+
+
+def slab_batch_rounding(sim, dt):
+    """Which layer of a setup rounds differently when a rank holds fewer
+    shards (one a rank on four cards, two on two) than the stack of
+    SLAB_SHARDS one rank holds: each layer over the whole stack, cut to
+    its first shards, against the same layer computed on those shards'
+    inputs alone, every layer fed the stack's slice of its inputs (leg
+    (a)'s last velocity, coordinates and state).  Logged, not held to a
+    bar."""
+    from exaconstit_tpu_torch.fem import operators as ops
+    from exaconstit_tpu_torch.fem.geometry import (adjugate_3x3_cm,
+                                                   det_3x3_cm, grad_calc_cm,
+                                                   jacobians_cm)
+    sysm = sim.system
+    ne, nq = sysm.ne, sysm.nq
+    dsh, qw = sysm.dshape, sysm.qwts
+
+    def vgrad(el_x, el_v):
+        J = jacobians_cm(el_x, dsh)
+        return grad_calc_cm(el_v, dsh, adjugate_3x3_cm(J),
+                            det_3x3_cm(J)).reshape(3, 3, -1)
+
+    def setup(L, state):
+        return sysm.model.model_setup_cm(
+            dt, L, state, compute_tangent=True, nsub=sysm.compute_nsub(dt),
+            with_solution=True)[:3]
+
+    with torch.inference_mode():
+        el_x = sysm.emap.gather(sim.x_beg + dt * sim.v)
+        el_v = sysm.emap.gather(sim.v)
+        L = vgrad(el_x, el_v)
+        stress, state, c6 = setup(L, sim.state)
+        c6_q, s_q = c6.reshape(6, 6, nq, ne), stress.reshape(6, nq, ne)
+        k = ops.assemble_ea_gradient_cm(el_x, dsh, qw, c6_q, dt)
+        keep = torch.arange(state.shape[0], device=state.device) != 3
+        for shards in (1, 2):
+            n1 = shards * sysm.part.ne_per
+
+            def pts(a):  # (..., nq * ne) point field -> the first shards'
+                lead = a.shape[:-1]
+                return a.reshape(*lead, nq, ne)[..., :n1].reshape(
+                    *lead, nq * n1).contiguous()
+
+            def els(a):  # (..., ne) element field -> the first shards'
+                return a[..., :n1].contiguous()
+
+            diffs = {}
+
+            def compare(name, whole, alone):
+                d = float((whole - alone).abs().max())
+                diffs[name] = (f"{d:.3e} ({d / float(whole.abs().max()):.1e}"
+                               " rel)" if d else "0 (bitwise)")
+
+            compare("velocity gradient", pts(L),
+                    vgrad(els(el_x), els(el_v)))
+            alone = setup(pts(L), pts(sim.state))
+            compare("point-solve stress", pts(stress), alone[0])
+            compare("state (no iteration counts)", pts(state)[keep],
+                    alone[1][keep])
+            compare("tangent", pts(c6), alone[2])
+            compare("EA blocks", els(k), ops.assemble_ea_gradient_cm(
+                els(el_x), dsh, qw, els(c6_q), dt))
+            compare("residual force", els(ops.residual_force_cm(
+                el_x, dsh, qw, s_q)), ops.residual_force_cm(
+                    els(el_x), dsh, qw, els(s_q)))
+            for dtype in (torch.float32, torch.float64):
+                u = torch.randn(el_x.shape, dtype=dtype, device=el_x.device,
+                                generator=torch.Generator(el_x.device)
+                                .manual_seed(0))
+                kd = k.to(dtype)
+                compare(f"EA apply {str(dtype)[6:]}",
+                        els(ops.apply_ea_gradient_cm(kd, u)),
+                        ops.apply_ea_gradient_cm(els(kd), els(u)))
+            first = first_batch_dependent_op(
+                lambda: setup(L, sim.state),
+                lambda: setup(pts(L), pts(sim.state)),
+                pts(torch.arange(nq * ne, device=L.device)[None])[0],
+                nq * ne)
+            log(f"[17 slab 32^3] {shards} shard(s) alone against their "
+                f"slice of the {SLAB_SHARDS}-shard stack, max abs diff: "
+                + "; ".join(f"{n} {d}" for n, d in diffs.items())
+                + f"; inside the lagged tangent, {first}")
+
+
+def first_batch_dependent_op(whole, alone, idx, n_whole):
+    """The first torch op inside ``evptn_cm.tangent_cm_core`` whose output
+    over the whole batch of ``n_whole`` points (``whole()``), cut to the
+    points ``idx``, differs from its output on those points alone
+    (``alone()``): every op's output is recorded under a
+    ``TorchFunctionMode`` and the two runs are compared op by op on the
+    outputs whose last axis is the points."""
+    from torch.overrides import TorchFunctionMode
+    from exaconstit_tpu_torch.models import evptn_cm
+
+    class Trace(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.outs = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if isinstance(out, torch.Tensor):
+                self.outs.append((getattr(func, "__name__", repr(func)),
+                                  out))
+            return out
+
+    def traced(run):
+        inner, depth, trace = evptn_cm.tangent_cm_core, [0], Trace()
+
+        def tangent(*args, **kw):  # its f32 call of itself runs inside
+            if depth[0]:
+                return inner(*args, **kw)
+            depth[0] += 1
+            try:
+                with trace:
+                    return inner(*args, **kw)
+            finally:
+                depth[0] -= 1
+
+        evptn_cm.tangent_cm_core = tangent
+        try:
+            run()
+        finally:
+            evptn_cm.tangent_cm_core = inner
+        return trace.outs
+
+    a, b = traced(whole), traced(alone)
+    n_alone = len(idx)
+    for i, ((name, tw), (_, ta)) in enumerate(zip(a, b)):
+        if tw.shape[-1] != n_whole or ta.shape != tw.shape[:-1] + (n_alone,):
+            continue
+        cut = tw[..., idx]
+        if not torch.equal(cut, ta):
+            d = float((cut - ta).abs().max())
+            return (f"op {i} of {len(a)} ({len(b)} alone), {name}, "
+                    f"{tw.dtype} {tuple(ta.shape)}, is the first to "
+                    f"differ: max abs diff {d:.3e}")
+    return f"none of {len(a)} ops ({len(b)} alone) differ"
+
+
+def slab_pieces(toml, launch_env):
+    """The pieces of one slab Krylov iteration timed alone at 32^3, in
+    f32 (the inner PCG's type): in an NCCL group of one rank the matvec
+    (gather, EA apply, masked scatter, halo exchange), the exchange alone
+    and the owner-masked dot (through the group); then the dot of the
+    same slab with no group, and the single device's matvec and dot."""
+    from exaconstit_tpu_torch.config.options import parse_options
+    from exaconstit_tpu_torch.driver import MechSystem, Simulation
+    from exaconstit_tpu_torch.parallel import sharding
+    from exaconstit_tpu_torch.parallel.slab_system import SlabMechSystem
+    f32 = torch.float32
+    ms = {}
+
+    def time_system(name, sysm, nodes):
+        nen = sysm.fes.ref.nnodes
+        k = torch.zeros((3 * nen, 3 * nen, sysm.ne), dtype=f32,
+                        device=sysm.device)
+        x = torch.ones(3 * nodes, dtype=f32, device=sysm.device)
+        if name != "slab, no group":
+            ms[f"{name} matvec"] = cuda_time_ms(lambda: sysm.apply_k(k, x),
+                                                reps=5)
+        ms[f"{name} dot"] = cuda_time_ms(lambda: sysm.dot(x, x), reps=5)
+
+    with env(**launch_env):
+        sharding.init_distributed("cuda")
+    try:
+        with torch.inference_mode():
+            sim = Simulation(parse_options(toml), workdir=os.path.dirname(
+                toml), device="cuda", shards=SLAB_SHARDS)
+            slab = sim.system
+            time_system("slab", slab, slab.emap.ntot)
+            y = torch.ones((3, slab.emap.ntot), dtype=f32,
+                           device=slab.device)
+            ms["slab exchange"] = cuda_time_ms(
+                lambda: slab.emap.exchange_add(y), reps=5)
+    finally:
+        sharding.shutdown_distributed()
+    with torch.inference_mode():
+        alone = SlabMechSystem(sim.opt, sim.mesh, sim.model, SLAB_SHARDS,
+                               device="cuda")
+        time_system("slab, no group", alone, alone.emap.ntot)
+        one = MechSystem(sim.opt, sim.mesh, sim.model, device="cuda",
+                         ea_asm_f32=False)
+        time_system("one device", one, one.nn)
+    log("[17 slab 32^3] one Krylov iteration's pieces alone, f32, ms: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+
+
+def slab_against_single(workdir):
+    """Leg (b): SlabMechSystem against the single-device MechSystem at the
+    slab's numerics (Jacobi, the f64 EA build) on the card."""
+    from exaconstit_tpu_torch.config.options import parse_options
+    from exaconstit_tpu_torch.driver import Simulation
+    toml = write_case(SLAB_CHECK_GRID, SLAB_DTS, workdir, "voce",
+                      parallel_mode="slab", precond="jacobi")
+    out, secs = {}, {}
+    for shards in (None, SLAB_SHARDS):
+        run_dir = os.path.join(workdir, f"run_{shards}")
+        os.makedirs(run_dir)
+        opt = parse_options(toml)
+        # both converged tightly: at the case's Newton rel 5e-5 the two
+        # partitions' solutions part at that level, not at rounding
+        opt.newton_rel_tol, opt.newton_abs_tol = SLAB_CHECK_NR_TOLS
+        opt.krylov_rel_tol = SLAB_CHECK_KRYLOV_TOL
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            sim = Simulation(opt, workdir=run_dir, device="cuda",
+                             shards=shards)
+            sim.system.ea_asm_f32 = False  # the slab's f64 EA build
+            sim.run(verbose=False)
+        secs[shards] = time.perf_counter() - t0
+        sysm = sim.system
+        state = sysm.from_state(sim.state).copy()
+        state[:, :, 3] = 0.0  # point-solve iteration counts
+        out[shards] = dict(
+            avg=np.loadtxt(os.path.join(run_dir, "avg_stress.txt"),
+                           ndmin=2),
+            stress=sysm.from_stress(sim.stress), state=state,
+            v=sysm.from_node(sim.v), mode=sim.parallel_mode)
+    one, slab = out[None], out[SLAB_SHARDS]
+    check(one["mode"] == "single" and slab["mode"] == "slab",
+          f"leg (b) ran {one['mode']} and {slab['mode']}")
+    gaps = {}
+    for name, rtol, atol in (("avg", 1e-5, 1e-12), ("stress", 1e-6, 1e-9),
+                             ("state", 1e-6, 1e-9), ("v", 0.0, 1e-9)):
+        a, b = slab[name], one[name]
+        excess = float(np.max(np.abs(a - b) - (atol + rtol * np.abs(b))))
+        gaps[name] = float(np.max(np.abs(a - b)))
+        check(excess <= 0.0, f"slab and single-device {name} differ by "
+              f"{gaps[name]:.3e} (rtol {rtol:g}, atol {atol:g})")
+    log(f"[17 slab {'x'.join(map(str, SLAB_CHECK_GRID))}] {SLAB_SHARDS} "
+        f"shards against one device on the card, {len(SLAB_DTS)} steps: "
+        f"max abs diff " + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+        + f" ({secs[SLAB_SHARDS]:.1f} s sharded, {secs[None]:.1f} s single)")
+
+
+def slab_cpu_vs_cuda(workdir):
+    """Leg (c): the slab over 2 shards at 4^3, the card against the CPU."""
+    out, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        sim, out[dev] = run_case((4, 4, 4), SLAB_DTS, dev,
+                                 os.path.join(workdir, dev), "voce",
+                                 shards=2, parallel_mode="slab",
+                                 precond="jacobi")
+        secs[dev] = time.perf_counter() - t0
+        check(sim.parallel_mode == "slab", f"leg (c) ran "
+              f"{sim.parallel_mode} on {dev}")
+    rel = float(np.max(np.abs(out["cuda"] - out["cpu"]))
+                / np.max(np.abs(out["cpu"])))
+    check(np.isfinite(out["cuda"]).all() and rel <= 1e-6,
+          f"slab CUDA and CPU average stress differ by rel {rel:.3e}")
+    log(f"[17 slab cuda vs cpu 4^3, 2 shards, 2 steps] max rel diff "
+        f"{rel:.3e} (bound 1e-6; {secs['cuda']:.1f} s on the card, "
+        f"{secs['cpu']:.1f} s on the CPU)")
+
+
+def cli_structure(out, nsteps):
+    """The sub-solves of each step, read from a verbose CLI run's output:
+    the last retry a step printed, or 1."""
+    blocks = re.split(r"^step \d+, dt = ", out, flags=re.M)[1:]
+    subs = [re.findall(r"retrying with (\d+) substeps", b) for b in blocks]
+    return [int(s[-1]) if s else 1 for s in subs][:nsteps]
+
+
+def slab_cards(workdir, leg_a):
+    """Leg (d): 2 NCCL ranks (and, with four cards, 4), one card each,
+    under torchrun, against leg (a)'s single process on the same 4-shard
+    partition, on the final checkpoint's arrays at full precision.  Two
+    ranks hold 2 shards each and must agree to SLAB_RANKS_TOLS.  Four
+    ranks hold one shard each; a rank's batch is then a quarter of the
+    points, and on four H100s their Newton path parted from one card's
+    (ROADMAP C7, A13c; ``slab_batch_rounding`` logs which layers round
+    with the batch): they are held, as leg (a), to a one-device run with
+    their own sub-solves at SLAB_SZZ_RTOL."""
+    cards = torch.cuda.device_count()
+    nsteps = len(SLAB_DTS)
+    toml = None
+    for ranks, word in ((2, "two"), (4, "four")):
+        if cards < ranks:
+            log(f"[17 slab] {word}-card NCCL leg not run: {cards} card")
+            continue
+        if toml is None:  # leg (a)'s case, checkpointed at its last step
+            toml = write_case((32, 32, 32), SLAB_DTS, workdir, "voce",
+                              parallel_mode="slab", precond="jacobi",
+                              checkpoint_steps=nsteps)
+        run_dir = os.path.join(workdir, f"run_{ranks}cards")
+        os.makedirs(run_dir)
+        penv = dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.abspath(__file__)) + os.pathsep
+            + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(ranks), "--local-ranks-filter", "0",
+             "-m", "exaconstit_tpu_torch.cli", "-opt", toml, "--shards",
+             str(SLAB_SHARDS)],
+            cwd=run_dir, env=penv, capture_output=True, text=True,
+            timeout=900)
+        secs = time.perf_counter() - t0
+        check(proc.returncode == 0, f"the {word}-card run failed:\n"
+              + proc.stdout[-3000:] + proc.stderr[-3000:])
+        got = np.loadtxt(os.path.join(run_dir, "avg_stress.txt"), ndmin=2)
+        check(got.shape == (nsteps, 6) and np.isfinite(got).all(),
+              f"{word} cards: average stress {got}")
+        with np.load(os.path.join(run_dir, "checkpoint",
+                                  "checkpoint.npz")) as ck:
+            end = {k: ck[k] for k in leg_a["final"]}
+        end["state"][:, :, 3] = 0.0  # iteration counts, as end_state
+        rtol, atol = SLAB_RANKS_TOLS
+        diffs, excess = {}, {}
+        for name, want in leg_a["final"].items():
+            a = end[name]
+            diffs[name] = ("bitwise" if np.array_equal(a, want) else
+                           f"{float(np.max(np.abs(a - want))):.3e}")
+            excess[name] = float(np.max(np.abs(a - want)
+                                        - (atol + rtol * np.abs(want))))
+        structure = cli_structure(proc.stdout, nsteps)
+        gaps = szz_gaps(got[:, 2], structure, leg_a)
+        steps = [np.loadtxt(os.path.join(run_dir, "timing",
+                                         f"time_solve.{r}.txt"), ndmin=1)
+                 for r in range(ranks)]
+        log(f"[17 slab 32^3] {word} cards, {ranks} NCCL ranks x "
+            f"{SLAB_SHARDS // ranks} shard(s): {secs:.1f} s with the "
+            f"processes' start, step seconds on rank 0 "
+            f"{[round(float(t), 2) for t in steps[0]]} (one card: "
+            f"{[round(t, 2) for t in leg_a['step_times']]}); sub-solves "
+            f"{structure} (one card: {leg_a['structure']}); end state "
+            f"against one card's, max abs diff: "
+            + ", ".join(f"{k} {v}" for k, v in diffs.items())
+            + "; szz gap per step: " + ", ".join(
+                f"{rel:.3e} to {name}'s" for rel, name in gaps))
+        if ranks == 2:
+            bad = [k for k, e in excess.items() if e > 0.0]
+            check(not bad, f"two cards and one card differ in {bad} beyond "
+                  f"rtol {rtol:g} / atol {atol:g}: {diffs}")
+        check_szz(f"{word} cards", gaps)
+
+
+def phase_slab(workdir, main_path=None):
+    t0 = time.perf_counter()
+    leg_a = slab_cli(os.path.join(workdir, "a"), main_path)
+    slab_against_single(os.path.join(workdir, "b"))
+    slab_cpu_vs_cuda(os.path.join(workdir, "c"))
+    slab_cards(os.path.join(workdir, "d"), leg_a)
+    log(f"[17 slab] {time.perf_counter() - t0:.1f} s for the phase")
+    return leg_a
+
+
 PHASES = ("stage", "staggered", "main", "cpu", "mtsdd", "mesh_pa",
-          "variants", "f32", "profile", "guard", "make_step", "loading")
+          "variants", "f32", "profile", "guard", "make_step", "loading",
+          "slab")
 
 
 def main(argv=None):
@@ -1069,6 +1658,8 @@ def main(argv=None):
                 step = phase_make_step(os.path.join(tmp, "make_step"))
             if "loading" in only:
                 phase_loading(os.path.join(tmp, "loading"))
+            if "slab" in only:
+                slab = phase_slab(os.path.join(tmp, "slab"), main_path)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
@@ -1092,7 +1683,8 @@ def main(argv=None):
         "path_ms_per_launch_max": main_path["max_ms"],
         "launches_mesh_pa_path": mesh_pa["launches"],
         "launches_f32_path": f32["launches"],
-        "launches_per_make_step": step["launches"]}]}))
+        "launches_per_make_step": step["launches"],
+        "launches_slab_path": slab["launches"]}]}))
     log(f"[16 total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -140,7 +140,7 @@ Version = "0.6.0"
 [Solvers]
     assembly = "{assembly}"
     integ_model = "{integ_model}"
-    parallel_mode = "single"
+    parallel_mode = "{parallel_mode}"
     precision = "{precision}"
     [Solvers.NR]
         iter = 25
@@ -151,7 +151,7 @@ Version = "0.6.0"
         rel_tol = {krylov_rel_tol}
         abs_tol = 1e-27
         solver = "{krylov_solver}"
-[Mesh]
+{precond}[Mesh]
     ref_ser = 0
     ref_par = 0
     p_refinement = 1
@@ -259,7 +259,8 @@ def _write_case(dirpath, name, props, ncuts, dts, ngrains, seed,
                 paraview=False, vis_steps=100, checkpoint_steps=0,
                 restart=False, auto_dt=None, mesh_file=False, assembly="EA",
                 integ_model="FULL", krylov_solver="PCG",
-                krylov_iter=1000, precision="f64") -> str:
+                krylov_iter=1000, precision="f64", parallel_mode="single",
+                precond=None) -> str:
     """Write the input files and ``<name>.toml`` into ``dirpath``: an
     ExaCMech crystal case (``xtal``, ``slip``) or, with ``library``, a
     UMAT case on one grain with one zero state variable.
@@ -274,7 +275,9 @@ def _write_case(dirpath, name, props, ncuts, dts, ngrains, seed,
     brick (with the grain map as attributes) to ``mesh.mesh`` and reads
     it as ``Mesh.type = "other"``; ``assembly`` ("EA", "PA", "FULL"),
     ``integ_model`` ("FULL", "BBAR"), ``krylov_solver`` ("PCG",
-    "MINRES", "GMRES") and ``krylov_iter`` go to ``[Solvers]``.
+    "MINRES", "GMRES"), ``krylov_iter``, ``precond`` ("jacobi", "gmg";
+    None leaves the reference's "auto") and ``parallel_mode`` ("single",
+    "auto", "slab", "replicated") go to ``[Solvers]``.
     ``precision`` ("f64" or "f32") goes there too, with the solver
     tolerances of ``TOLERANCES[precision]``; in f32 an ExaCMech props
     file carries the relaxed point-solve tolerance."""
@@ -330,6 +333,9 @@ def _write_case(dirpath, name, props, ncuts, dts, ngrains, seed,
             additional_avgs=_bool(additional_avgs), assembly=assembly,
             integ_model=integ_model, krylov_solver=krylov_solver,
             krylov_iter=krylov_iter, precision=precision,
+            parallel_mode=parallel_mode,
+            precond="" if precond is None else
+            f'        precond = "{precond}"\n',
             nr_rel_tol=tols["nr_rel_tol"], nr_abs_tol=tols["nr_abs_tol"],
             krylov_rel_tol=tols["krylov_rel_tol"],
             mesh_type="other" if mesh_file else "auto", mesh_floc=mesh_floc,

@@ -18,6 +18,12 @@ dogleg iteration reads its stop test on the host.  As in the reference,
 ``EXACONSTIT_TPU_REGIONS`` turns on the region timings
 (``utils/profiling.py``) and ``EXACONSTIT_CHECK_NUMERICS`` the layer
 guards (``utils/guards.py``), both read when a ``MechSystem`` is built.
+
+Spread over shards (``Simulation(shards=...)``, the CLI's ``--shards``
+or one shard per rank of a process group) a run takes the slab domain
+decomposition, ``parallel/slab_system.SlabMechSystem``, as the
+reference's ``Simulation`` does on a device mesh; every host step here
+is the same on every rank, and only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ from .mesh.mfem_io import read_mfem_mesh
 from .mesh.voxel import HexMesh, make_cartesian_mesh
 from .models.ecmech import build_model
 from .models.umat import UmatLibrary, UmatModel
+from .parallel import sharding
 from .solvers import gmg
 from .solvers.krylov import gmres, minres, pcg, pcg_refined
 from .utils.guards import check_finite, numerics_checks_enabled
@@ -168,10 +175,15 @@ class MechSystem:
     f32, PCG is the plain f32 ``pcg`` (GMG built on the f32 blocks, or
     Jacobi) and the point solve is the plain f32 trust region: the
     kernel's mixed-precision stage needs an f64 run, as the reference's
-    does."""
+    does.
+
+    A caller's ``emap`` over a partition of the mesh (the slab's
+    ``SlabMap``, holding ``emap.ne`` of the elements) stands for the
+    reference's device mesh: the system then warm-starts every point
+    solve (no point-major half) and never takes GMG."""
 
     def __init__(self, opt: ExaOptions, mesh: HexMesh, model,
-                 device="cuda", ea_asm_f32=None):
+                 device="cuda", ea_asm_f32=None, emap=None):
         self.device = resolve_device(device)
         self.dtype = run_dtype(opt)
         self.opt = opt
@@ -179,8 +191,12 @@ class MechSystem:
         self.fes = FESpace.create(mesh)
         self.bbar = opt.integ_type == IntegrationType.BBAR
         self.pa = opt.assembly == Assembly.PA and not self.bbar
-        self.point_major = self.bbar or self.pa or model.point_major
-        if mesh.structure is not None:
+        sharded = emap is not None
+        self.point_major = not sharded and (self.bbar or self.pa
+                                            or model.point_major)
+        if sharded:
+            self.emap = emap
+        elif mesh.structure is not None:
             self.emap = StructuredMap(mesh.structure, mesh.order)
         else:
             self.emap = IndexMap(self.fes.conn, self.fes.num_nodes,
@@ -190,7 +206,7 @@ class MechSystem:
         self.qwts = torch.as_tensor(self.fes.ref.qwts, dtype=self.dtype,
                                     device=self.device)
         self.nn = self.fes.num_nodes
-        self.ne = self.fes.num_elems
+        self.ne = emap.ne if sharded else self.fes.num_elems
         self.nq = self.fes.nqpts
         self.npts = self.ne * self.nq
         mixed = getattr(getattr(model, "evptn", None), "mixed_precision",
@@ -203,7 +219,7 @@ class MechSystem:
         kind = opt.krylov_precond
         eligible = (mesh.structure is not None and self.fes.ref.nnodes == 8
                     and opt.solver == KrylovSolver.PCG
-                    and not self.point_major)
+                    and not self.point_major and not sharded)
         if kind in ("gmg", "auto") and eligible:
             meta = gmg.GMGMeta(mesh.structure)
             if meta.usable:
@@ -212,8 +228,9 @@ class MechSystem:
                 print("gmg preconditioner unavailable (grid does not "
                       "coarsen); using Jacobi")
         elif kind == "gmg":
-            print("gmg preconditioner requires PCG on the component-major "
-                  "EA path on a structured order-1 mesh; using Jacobi")
+            print("gmg preconditioner requires PCG on the single-device "
+                  "component-major EA path on a structured order-1 mesh; "
+                  "using Jacobi")
         self.precond_kind = "gmg" if self.gmg_meta is not None else "jacobi"
         self.last_newton_stats = {}
         # host wall time per region (opt-in: it synchronises the device
@@ -249,6 +266,10 @@ class MechSystem:
     # stress shares the (k, npts) <-> (ne, nq, k) transform
     to_stress = to_state
     from_stress = from_state
+
+    def from_elem(self, dev):
+        """(k, ne) per-element device field -> host (ne, k)."""
+        return dev.cpu().numpy().T
 
     def _ess_flat(self, ess_mask):
         if torch.is_tensor(ess_mask) and ess_mask.ndim == 1:
@@ -352,6 +373,14 @@ class MechSystem:
         y = self.apply_k(k_data, torch.where(ess, 0.0, x))
         return torch.where(ess, x, y)
 
+    def dot(self, a, b):
+        """Inner product of two nodal vectors: PCG's and the norms'."""
+        return torch.dot(a, b)
+
+    def norm(self, r):
+        """Norm of a nodal vector (Newton's stop test), a 0-d tensor."""
+        return torch.linalg.vector_norm(r)
+
     def krylov_solve(self, k_data, diag, b, ess):
         """PCG in mixed precision (f32 inner, f64 replay) with the GMG
         V-cycle or Jacobi, or MINRES or GMRES in f64 with Jacobi; on an
@@ -380,7 +409,7 @@ class MechSystem:
                 def precond(v):
                     return gmg.v_cycle(levels, v, coarse_dense=cd)
 
-            return pcg(matvec, precond, *args)
+            return pcg(matvec, precond, *args, dot=self.dot)
         f32 = torch.float32
         k32 = k_data.to(f32)
         dinv32 = dinv.to(f32)
@@ -403,7 +432,8 @@ class MechSystem:
                 return gmg.v_cycle(levels, v.to(f32),
                                    coarse_dense=cd).to(b.dtype)
 
-        return pcg_refined(matvec, precond, matvec32, precond32, *args)
+        return pcg_refined(matvec, precond, matvec32, precond32, *args,
+                           dot=self.dot)
 
     def _timed(self, name, fn, *args):
         """fn(*args), recorded as region ``name`` when region timing is
@@ -420,6 +450,22 @@ class MechSystem:
         wts = ops.quad_point_volumes_cm(el_x, self.dshape, self.qwts)
         s = torch.einsum("qe,kqe->k", wts, values_q)
         return s / torch.sum(wts) if divide else s
+
+    def _deff(self, v, x_beg, dt):
+        """(nq, ne) effective deformation rate at the end-of-step
+        geometry."""
+        el_x = self.emap.gather(x_beg + dt * v)
+        L = self._vgrad(el_x, self.emap.gather(v))
+        d = 0.5 * (L + L.transpose(0, 1))
+        tr3 = (d[0, 0] + d[1, 1] + d[2, 2]) / 3.0
+        dev2 = torch.sum(d * d, dim=(0, 1)) - 3.0 * tr3 * tr3
+        deff = torch.sqrt(2.0 / 3.0 * torch.clamp(dev2, min=0.0))
+        return deff.reshape(self.nq, self.ne)
+
+    def max_deff(self, v, x_beg, dt):
+        """The largest effective deformation rate over the points, a 0-d
+        tensor (the reference's ``_max_deff``)."""
+        return self._deff(v, x_beg, dt).max()
 
     # -- Newton solve ---------------------------------------------------------
 
@@ -446,7 +492,7 @@ class MechSystem:
                                x_beg, state, dt, ess, nsub, xw, ok)
 
         def norm(r):
-            return float(torch.linalg.vector_norm(r))
+            return float(self.norm(r))
 
         out = do_setup(v)
         r, k_data, diag, stress, state_end = out[:5]
@@ -534,8 +580,7 @@ class MechSystem:
                 xw, ok = x_sol, True
             r, _, _, stress, state_end, _ = self.setup(
                 v, x_beg, state, dt, ess, True, nsub, xw, ok)
-            return (v, x_beg + dt * v, stress, state_end,
-                    torch.linalg.vector_norm(r))
+            return (v, x_beg + dt * v, stress, state_end, self.norm(r))
 
         return step
 
@@ -570,8 +615,11 @@ def _euler_to_quat(euler):
 
 
 class Simulation:
+    """The time loop on one device or, with ``shards``, on the slab
+    domain decomposition (see ``_make_system``)."""
+
     def __init__(self, opt: ExaOptions, workdir: str | None = None,
-                 device="cuda"):
+                 device="cuda", shards: int | None = None):
         device = resolve_device(device)
         self.opt = opt
         self.workdir = workdir or os.getcwd()
@@ -602,11 +650,12 @@ class Simulation:
                 temp_k=opt.temp_k)
         else:
             self.model = build_model(opt, props)
-        self.system = MechSystem(opt, self.mesh, self.model, device=device)
+        self.system = self._make_system(device, shards)
         sysm = self.system
         state0 = (self._umat_state() if opt.mech_type == MechType.UMAT
                   else self._ecmech_state())
-        self.state = sysm.to_state(state0.reshape(sysm.ne, sysm.nq, -1))
+        self.state = sysm.to_state(state0.reshape(self.mesh.num_elems,
+                                                  sysm.nq, -1))
         self.stress = torch.zeros((6, sysm.npts), dtype=sysm.dtype,
                                   device=sysm.device)
 
@@ -638,6 +687,54 @@ class Simulation:
         self.vis_entries = []
         self.visualize = (opt.visit or opt.conduit or opt.paraview
                           or opt.adios2)
+
+    def _make_system(self, device, shards):
+        """The system the run takes, as the reference's ``Simulation``
+        chooses it (``parallel_mode`` in ``self.parallel_mode``).
+
+        ``shards`` None means one shard per rank when the process group
+        has more than one rank (unless ``parallel_mode = "single"``), and
+        one device otherwise.  Over shards, "auto" and "slab" take the
+        slab with an ExaCMech material and PCG; under "auto" a mesh the
+        slab cannot partition falls through to the reference's
+        replicated-node sharding, which is not ported (ROADMAP A13b):
+        that, "replicated", "single" with shards and "auto" with a
+        configuration the slab does not cover raise.  "slab" with a
+        UMAT or another solver raises."""
+        opt = self.opt
+        mode = opt.parallel_mode
+        world = sharding.world_size()
+        if shards is None and world > 1 and mode != "single":
+            shards = world
+        if shards is None:
+            self.parallel_mode = "single"
+            return MechSystem(opt, self.mesh, self.model, device=device)
+        if shards % world:
+            raise ValueError(f"{shards} shards do not divide over {world} "
+                             "ranks")
+        covered = (opt.mech_type == MechType.EXACMECH
+                   and opt.solver == KrylovSolver.PCG)
+        if mode in ("auto", "slab") and covered:
+            from .parallel.slab_system import SlabMechSystem
+            try:
+                system = SlabMechSystem(opt, self.mesh, self.model, shards,
+                                        device=device)
+                self.parallel_mode = "slab"
+                return system
+            except ValueError as e:
+                if mode == "slab":
+                    raise
+                print(f"slab partition unavailable ({e})")
+        elif mode == "slab":
+            raise ValueError(
+                "Solvers.parallel_mode = 'slab' requires an ExaCMech "
+                "material and the PCG Krylov solver (got "
+                f"mech_type={opt.mech_type.name}, "
+                f"solver={opt.solver.name})")
+        raise ValueError(
+            f"parallel_mode = {mode!r} over {shards} shards needs the "
+            "reference's replicated-node sharding, which the port does not "
+            "have yet (ROADMAP A13b)")
 
     def _ecmech_state(self):
         """Initial point-major state: the orientation file's quaternions
@@ -793,6 +890,9 @@ class Simulation:
         return v, stress, state, x
 
     def _append_file(self, name, text):
+        # every rank computes the averages (collectively); rank 0 writes
+        if sharding.process_rank() != 0:
+            return
         with open(os.path.join(self.workdir, name), "a") as f:
             f.write(text)
 
@@ -880,12 +980,18 @@ class Simulation:
 
 
 def run_simulation(toml_path: str, workdir: str | None = None,
-                   verbose: bool = True, device="cuda"):
+                   verbose: bool = True, device="cuda",
+                   shards: int | None = None):
     """Parse the options file and run the whole simulation on ``device``
-    (default: the card; ``device="cpu"`` runs on the CPU)."""
+    (default: the card; ``device="cpu"`` runs on the CPU), over
+    ``shards`` slab shards if given (``Simulation``)."""
     set_precision_policy()
     opt = parse_options(toml_path)
     with torch.inference_mode():
-        sim = Simulation(opt, workdir=workdir, device=device)
+        sim = Simulation(opt, workdir=workdir, device=device, shards=shards)
+        if verbose and sim.parallel_mode != "single":
+            print(f"domain decomposition over {sim.system.layout.n_shards} "
+                  f"shards on {sharding.world_size()} rank(s) "
+                  f"(Solvers.parallel_mode = {opt.parallel_mode})")
         sim.run(verbose=verbose)
     return sim

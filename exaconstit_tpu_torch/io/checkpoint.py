@@ -8,7 +8,9 @@ compressed ``.npz`` holding ``x_beg`` and ``v`` (nn, 3), ``state`` and
 brick or mesh file) and the model (an ExaCMech history or a UMAT's F,
 stress and user state).  A checkpoint written by either package resumes
 in the other.  All simulation state is explicit,
-so a resumed run repeats the uninterrupted one exactly.
+so a resumed run repeats the uninterrupted one exactly.  Over the slab's
+shards every rank gathers the arrays (collectively) and rank 0 writes;
+every rank reads the archive back.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from __future__ import annotations
 import os
 
 import numpy as np
+
+from ..parallel.sharding import process_rank
 
 
 def save_checkpoint(path: str, sim, t: float, ti: int):
@@ -35,6 +39,8 @@ def save_checkpoint(path: str, sim, t: float, ti: int):
     )
     if hasattr(sim, "state_prev"):
         arrays["state_prev"] = sysm.from_state(sim.state_prev)
+    if process_rank() != 0:
+        return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     np.savez_compressed(path, **arrays)
 

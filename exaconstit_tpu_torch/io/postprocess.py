@@ -8,7 +8,8 @@ the element centroid and the full elastic strain in the crystal frame
 deformation gradient and its user state variables instead (the JAX
 package's dump knows only the ExaCMech names).  The averages are computed on the
 simulation's device from its component-major fields and leave it in one
-transfer per dump.
+transfer per dump (``MechSystem.from_elem``: over the slab's shards a
+gather over all ranks, in the mesh's element order); only rank 0 writes.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 
 from ..fem import operators as ops
 from ..models.evptn_cm import vecd_to_svec_cm
+from ..parallel.sharding import process_rank
 from .hdf5_dc import write_hdf5_step
 from .vtk import write_pvd, write_vtu
 
@@ -81,11 +83,11 @@ def compute_element_fields(sim, light_up=False):
         fields["XtalElasticStrain"] = torch.cat([svec[:3] + vol, svec[3:]])
 
     # one transfer for all fields, then split on the host
-    flat = torch.cat(list(fields.values())).cpu().numpy()
+    flat = sysm.from_elem(torch.cat(list(fields.values())))  # (ne, k)
     out, row = {}, 0
     for name, f in fields.items():
         k = f.shape[0]
-        block = flat[row:row + k].T
+        block = flat[:, row:row + k]
         # scalar fields are (ne,), except the hardness vector of length 1
         out[name] = block if k > 1 or name == "Hardness" else block[:, 0]
         row += k
@@ -104,6 +106,9 @@ def write_vis_step(sim, ti, t, entries):
     x_cur = sysm.from_node(sim.x_cur)
     points = {"Displacement": x_cur - sysm.from_node(sim.x_ref),
               "Velocity": sysm.from_node(sim.v)}
+    # the gathers above are collective; rank 0 writes
+    if process_rank() != 0:
+        return
     conn = np.asarray(sim.mesh.conn)
     if opt.paraview or opt.visit:
         vtu_name = f"step_{ti:06d}.vtu"

@@ -6,7 +6,10 @@ semantics: CG stops when (z, r) <= max(rel_tol^2 (z0, r0), abs_tol^2);
 MINRES and GMRES when the preconditioned residual norm is at most
 max(rel_tol * its initial value, abs_tol).  The loops are eager Python
 loops with one host read of the stop test per iteration.  All return
-(x, iters, converged, rel_reduction).
+(x, iters, converged, rel_reduction).  ``pcg`` and ``pcg_refined``
+take the reference's ``dot=`` hook: every inner product and norm in them
+goes through it (the slab system passes its owner-masked global dot);
+the default is ``torch.dot``.
 
 Unlike the reference, ``pcg`` does not report a breakdown ((d, Ad) <= 0)
 as convergence: it stops there with ``converged`` False.  Solutions and
@@ -18,21 +21,21 @@ from __future__ import annotations
 import torch
 
 
-def pcg(matvec, precond, b, rel_tol, abs_tol, max_iter):
+def pcg(matvec, precond, b, rel_tol, abs_tol, max_iter, dot=torch.dot):
     """Solve A x = b.  Returns (x, iters, converged, rel_reduction) with
     rel_reduction = sqrt((z, r)/(z0, r0)) in the criterion's norm."""
     x = torch.zeros_like(b)
     r = b
     z = precond(r)
     d = z
-    nom0 = torch.dot(z, r)
+    nom0 = dot(z, r)
     nom = nom0
     r0 = torch.clamp(nom0 * rel_tol * rel_tol, min=abs_tol * abs_tol)
     converged = bool(nom <= r0)
     it = 0
     while it < max_iter and not converged:
         ad = matvec(d)
-        den = torch.dot(d, ad)
+        den = dot(d, ad)
         if not bool(den > 0.0):
             # breakdown: not positive definite at this iterate (in f32
             # also by underflow); counted as an iteration, as MFEM does
@@ -42,7 +45,7 @@ def pcg(matvec, precond, b, rel_tol, abs_tol, max_iter):
         x = x + alpha * d
         r = r - alpha * ad
         z = precond(r)
-        betanom = torch.dot(r, z)
+        betanom = dot(r, z)
         converged = bool(betanom <= r0)
         d = z + (betanom / nom) * d
         nom = betanom
@@ -152,7 +155,7 @@ def gmres(matvec, precond, b, rel_tol, abs_tol, max_iter, restart=50):
 
 
 def pcg_refined(matvec, precond, matvec_lo, precond_lo, b, rel_tol, abs_tol,
-                max_iter, inner_rel=1e-4, max_rounds=6):
+                max_iter, inner_rel=1e-4, max_rounds=6, dot=torch.dot):
     """Mixed-precision PCG: f32 inner solves + f64 iterative refinement.
 
     Each round runs f32 PCG on the normalized current f64 residual
@@ -161,7 +164,7 @@ def pcg_refined(matvec, precond, matvec_lo, precond_lo, b, rel_tol, abs_tol,
     matvec_lo/precond_lo in f32.  Returns (x, total_inner_iters,
     converged, rel_reduction)."""
     z0 = precond(b)
-    nom0 = torch.dot(z0, b)
+    nom0 = dot(z0, b)
     r0bar = torch.clamp(nom0 * rel_tol * rel_tol, min=abs_tol * abs_tol)
     x = torch.zeros_like(b)
     r = b
@@ -171,15 +174,15 @@ def pcg_refined(matvec, precond, matvec_lo, precond_lo, b, rel_tol, abs_tol,
     while rounds < max_rounds and it < max_iter and not done:
         # normalized inner right-hand side: late rounds have |r| ~ 1e-8
         # |b|, whose square underflows the f32 recurrences
-        rnorm = torch.sqrt(torch.dot(r, r))
+        rnorm = torch.sqrt(dot(r, r))
         scale = torch.where(rnorm > 0.0, rnorm, 1.0)
         dx, in_it, _, _ = pcg(matvec_lo, precond_lo,
                               (r / scale).to(torch.float32), inner_rel, 0.0,
-                              max_iter - it)
+                              max_iter - it, dot=dot)
         dx = torch.where(torch.isfinite(dx), dx, 0.0)
         x = x + scale * dx.to(b.dtype)
         r = b - matvec(x)
-        nom = torch.dot(precond(r), r)
+        nom = dot(precond(r), r)
         it += in_it
         rounds += 1
         done = bool(nom <= r0bar)
