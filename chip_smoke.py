@@ -84,7 +84,7 @@ failed check exits non-zero with no result line:
 15. ``workflows.run_loading`` at 4^3 on the card against the CPU (rel
    1e-6);
 16. a ``kernels`` JSON line; then the ``ok`` JSON line, last (after
-   phase 17);
+   phases 17 and 18);
 17. the slab domain decomposition (``parallel/``): (a) the 32^3 Voce case
    with ``parallel_mode = "slab"`` and Jacobi through the CLI under
    torchrun's variables for a world size of 1 (an NCCL process group),
@@ -108,10 +108,32 @@ failed check exits non-zero with no result line:
    under torchrun, one card each, ``--shards 4``, against (a) on the final
    checkpoint's arrays (rtol 1e-8, atol 1e-14), and with four cards 4
    ranks held as (a) is (see ``slab_cards``); with one card it logs that
-   the leg did not run.
+   the leg did not run;
+18. the replicated-node element sharding (``parallel/replicated.py``):
+   (a) the 32^3 Voce case with ``parallel_mode = "replicated"`` through
+   the CLI under torchrun's variables for a world size of 1 (an NCCL
+   process group), ``--shards 3`` (32,768 elements do not divide by 3: one
+   pad element, a copy of element 0), dt 0.1, 0.2, with the kernel's
+   launch count reset just before and read just after (one launch per
+   setup over the rank's 262,152 padded points): per step the seconds,
+   Newton and Krylov counts, sub-solves, sigma_zz held at rel 1e-4 to a
+   one-device run with the same sub-solves (phase 5's, else one device
+   forced to them at this path's numerics: Jacobi, the f32 EA build), and
+   the all-reduces with the bytes each moves; the wall, peak memory, the
+   kernel's ms per launch and the region split; (b) ``MechSystem`` on a
+   ``ReplicatedMap`` over 3 shards against the single-device system at
+   this path's numerics at 8x8x16, with phase 17 (b)'s steps and bars;
+   (c) the card against the CPU at 4^3 over 3 shards (rel 1e-6, f32
+   1e-4) for the elastic UMAT, GMRES, MINRES, a mesh file with EA, PA,
+   B-bar, "auto" on the brick the slab cannot partition, and the Voce
+   case in f32; (d) with two cards or more, 2 NCCL ranks x 2 shards under
+   torchrun against one rank's 4 shards on the final checkpoint's arrays
+   (rtol 1e-8, atol 1e-14); with one card it logs that the leg did not
+   run.
 """
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import glob
@@ -175,6 +197,36 @@ SLAB_SZZ_RTOL = 1e-4
 # the 2-rank run against one process's 4 stacked shards, on the final
 # checkpoint's arrays (rtol, atol)
 SLAB_RANKS_TOLS = (1e-8, 1e-14)
+# the one-device numerics a sharded 32^3 run is held to, in the order
+# they are tried: (name, krylov_precond, f32 EA build)
+SLAB_NUMERICS = (("the slab's", "jacobi", False), ("phase 5's", "auto", True))
+# The replicated-node path (phase 18): phase 17's steps over 3 shards,
+# which 32,768 elements do not fill (one pad element, a copy of element 0);
+# against one device at this path's numerics at 8x8x16; the card against
+# the CPU at 4^3 over 3 shards for what the slab refuses and the
+# point-major half: (family, options, rel tolerance on the average stress)
+REPL_DTS = (0.1, 0.2)
+REPL_SHARDS = 3
+REPL_VARIANTS = {
+    "UMAT": ("umat", dict(parallel_mode="replicated"), 1e-6),
+    "GMRES": ("voce", dict(parallel_mode="replicated",
+                           krylov_solver="GMRES"), 1e-6),
+    "MINRES": ("voce", dict(parallel_mode="replicated",
+                            krylov_solver="MINRES"), 1e-6),
+    "mesh EA": ("voce", dict(parallel_mode="replicated", mesh_file=True),
+                1e-6),
+    "PA": ("voce", dict(parallel_mode="replicated", assembly="PA"), 1e-6),
+    "BBar": ("voce", dict(parallel_mode="replicated", integ_model="BBAR"),
+             1e-6),
+    "auto, unpartitionable": ("voce", dict(parallel_mode="auto"), 1e-6),
+    "f32": ("voce", dict(parallel_mode="replicated", precision="f32"),
+            1e-4),
+}
+# the 2-rank run, 2 shards a card, against one process's 4 stacked shards
+REPL_CARDS_SHARDS = 4
+# this path's one-device numerics (Jacobi, the f32 EA build; the index
+# map sums as the strided one does), then phase 5's
+REPL_NUMERICS = (("this path's", "jacobi", True), ("phase 5's", "auto", True))
 # the region names of MechSystem._timed
 REGIONS = ("operator_setup", "line_search", "krylov_solve")
 BCC_STAGE_SIZE = 262_144
@@ -1112,20 +1164,21 @@ class ExchangeRecorder:
         self.cls.exchange_add = self.saved
 
 
-def same_structure_szz(toml, run_dir, structure):
+def same_structure_szz(toml, run_dir, structure, label="17 slab 32^3",
+                       dts=SLAB_DTS, numerics=SLAB_NUMERICS):
     """sigma_zz per step of ``toml`` on one device, step k forced to take
     ``structure[k]`` sub-solves: its whole solve and every coarser retry
     report failure without running.  A forced sub-solve may still fail
-    and be retried finer (C7), so the run is tried at the slab's numerics
-    (Jacobi, the f64 EA build) and then at phase 5's (GMG, the f32 EA
-    build); fails unless one of them took exactly those sub-solves."""
+    and be retried finer (C7), so the run is tried at each of
+    ``numerics`` in turn (the sharded path's own, then phase 5's: GMG,
+    the f32 EA build); fails unless one of them took exactly those
+    sub-solves."""
     from exaconstit_tpu_torch import set_precision_policy
     from exaconstit_tpu_torch.config.options import parse_options
     from exaconstit_tpu_torch.driver import Simulation
     set_precision_policy()
     tried = []
-    for name, precond, ea_f32 in (("the slab's", "jacobi", False),
-                                  ("phase 5's", "auto", True)):
+    for name, precond, ea_f32 in numerics:
         wd = os.path.join(run_dir, precond)
         os.makedirs(wd)
         t0 = time.perf_counter()
@@ -1139,7 +1192,7 @@ def same_structure_szz(toml, run_dir, structure):
 
             def newton_solve(v, x_beg, state, dt, *args, **kw):
                 k = len(sim.step_stats)  # the step being solved
-                if dt > SLAB_DTS[k] / structure[k] * (1 + 1e-9):
+                if dt > dts[k] / structure[k] * (1 + 1e-9):
                     return v, None, None, False, 0, None
                 return solve(v, x_beg, state, dt, *args, **kw)
 
@@ -1147,7 +1200,7 @@ def same_structure_szz(toml, run_dir, structure):
             sim.run(verbose=False)
         took = [st["subdivided"] for st in sim.step_stats]
         szz = np.loadtxt(os.path.join(wd, "avg_stress.txt"), ndmin=2)[:, 2]
-        log(f"[17 slab 32^3] one device at {name} numerics "
+        log(f"[{label}] one device at {name} numerics "
             f"({sysm.precond_kind}) forced to {list(structure)} sub-solves: "
             f"took {took}, last NR "
             f"{[st['nr_iters'] for st in sim.step_stats]}, szz "
@@ -1162,20 +1215,23 @@ def same_structure_szz(toml, run_dir, structure):
 
 
 def szz_gaps(szz, structure, leg_a):
-    """Per step (rel gap, name) of a slab run's sigma_zz to a one-device
-    run with the same sub-solves in every step so far: phase 5's, or
-    ``same_structure_szz`` (run once per structure, kept in leg_a)."""
-    main, refs = leg_a["main_path"], leg_a["refs"]
+    """Per step (rel gap, name) of a sharded run's sigma_zz to a
+    one-device run with the same sub-solves in every step so far: phase
+    5's, or ``same_structure_szz`` at ``leg_a``'s label, steps and
+    numerics (run once per structure, kept in leg_a)."""
+    main, refs, dts = leg_a["main_path"], leg_a["refs"], leg_a["dts"]
     out = []
-    for k in range(len(SLAB_DTS)):
-        if main is not None and MAIN_DTS[:k + 1] == SLAB_DTS[:k + 1] \
+    for k in range(len(dts)):
+        if main is not None and MAIN_DTS[:k + 1] == dts[:k + 1] \
                 and list(main["subdivided"][:k + 1]) == structure[:k + 1]:
             want, name = main["szz"][k], "phase 5"
         else:
             key = tuple(structure)
             if key not in refs:
-                refs[key] = same_structure_szz(leg_a["toml"], os.path.join(
-                    leg_a["workdir"], f"one_{len(refs)}"), key)
+                refs[key] = same_structure_szz(
+                    leg_a["toml"], os.path.join(leg_a["workdir"],
+                                                f"one_{len(refs)}"), key,
+                    leg_a["label"], dts, leg_a["numerics"])
             want, name = refs[key][k], f"one device forced to {list(key)}"
         out.append((abs(szz[k] - want) / abs(want), name))
     return out
@@ -1224,7 +1280,8 @@ def slab_cli(workdir, main_path=None):
     structure = [st["subdivided"] for st in sim.step_stats]
     leg_a = dict(launches=launches, wall=wall, stress=stress, toml=toml,
                  final=rec.final, structure=structure, workdir=workdir,
-                 main_path=main_path, refs={},
+                 main_path=main_path, refs={}, dts=SLAB_DTS,
+                 label="17 slab 32^3", numerics=SLAB_NUMERICS,
                  median_ms=float(np.median(ms)), max_ms=float(ms.max()),
                  step_times=list(sim.step_times))
     gaps = szz_gaps(stress[:, 2], structure, leg_a)
@@ -1607,9 +1664,260 @@ def phase_slab(workdir, main_path=None):
     return leg_a
 
 
+class AllreduceRecorder:
+    """Wraps ``ShardLayout._allreduce`` (the reductions through the
+    process group) and ``Simulation.advance`` for one run: per time step,
+    the all-reduces by the bytes each moves."""
+
+    def __enter__(self):
+        from exaconstit_tpu_torch import driver
+        from exaconstit_tpu_torch.parallel.sharding import ShardLayout
+        self.cls, self.saved = ShardLayout, ShardLayout._allreduce
+        self.sim_cls = driver.Simulation
+        self.advance = driver.Simulation.advance
+        self.steps, self.cur = [], collections.Counter()
+        rec = self
+
+        def _allreduce(layout, t, op):
+            if layout.distributed:
+                rec.cur[t.numel() * t.element_size()] += 1
+            return rec.saved(layout, t, op)
+
+        def advance(sim, *args, **kw):
+            out = rec.advance(sim, *args, **kw)
+            rec.steps.append(rec.cur)
+            rec.cur = collections.Counter()
+            return out
+
+        ShardLayout._allreduce = _allreduce
+        driver.Simulation.advance = advance
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._allreduce = self.saved
+        self.sim_cls.advance = self.advance
+
+
+def replicated_cli(workdir, main_path=None):
+    """Leg (a): the 32^3 Voce case over REPL_SHARDS replicated-node shards
+    through the CLI in an NCCL process group of one rank; ``main_path``
+    phase 5's result, if it ran."""
+    from exaconstit_tpu_torch.parallel.replicated import ReplicatedMap
+    from exaconstit_tpu_torch.solvers import dogleg_cuda as dc
+    label = "18 replicated 32^3"
+    toml = write_case((32, 32, 32), REPL_DTS, workdir, "voce",
+                      parallel_mode="replicated")
+    run_dir = os.path.join(workdir, "run_cuda")
+    torch.cuda.reset_peak_memory_stats()
+    launch_env = dict(EXACONSTIT_TPU_DIST="1", RANK="0", WORLD_SIZE="1",
+                      LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(free_port()))
+    with LaunchRecorder(dc.KERNEL) as krec, AllreduceRecorder() as arec, \
+            env(EXACONSTIT_TPU_REGIONS="1", **launch_env):
+        dc.KERNEL.launches = 0
+        rec, wall = run_cli(toml, run_dir, "--shards", str(REPL_SHARDS))
+        launches = dc.KERNEL.launches
+    peak = torch.cuda.max_memory_allocated()
+    ms, _, _ = krec.read()
+    sim = rec.sim
+    sysm = sim.system
+    nsteps = len(REPL_DTS)
+    stress = np.loadtxt(os.path.join(run_dir, "avg_stress.txt"), ndmin=2)
+    emap = sysm.emap
+    check(rec.backend == "nccl" and sim.parallel_mode == "replicated"
+          and isinstance(emap, ReplicatedMap) and sysm.layout.distributed
+          and sysm.layout.n_shards == REPL_SHARDS, f"the replicated leg ran "
+          f"as {sim.parallel_mode} on backend {rec.backend}")
+    check(emap.ne_pad > sysm.fes.num_elems,
+          "the 32^3 run holds no pad element")
+    check(sysm.ea_asm_f32 and sysm.precond_kind == "jacobi",
+          "the replicated path left the f32 EA build or took GMG")
+    check(stress.shape == (nsteps, 6) and np.isfinite(stress).all(),
+          f"replicated average stress rows {stress.shape} or not finite")
+    check(len(sim.step_stats) == nsteps, "a replicated step did not finish")
+    check(launches > 0 and len(ms) == launches,
+          f"the replicated path launched the dogleg kernel {launches} "
+          f"times ({len(ms)} recorded)")
+    points = set(krec.points)
+    check(points == {sysm.npts}, f"points per launch {sorted(points)}, not "
+          f"the rank's {sysm.npts} padded points")
+    structure = [st["subdivided"] for st in sim.step_stats]
+    leg_a = dict(launches=launches, wall=wall, toml=toml, workdir=workdir,
+                 main_path=main_path, refs={}, dts=REPL_DTS, label=label,
+                 numerics=REPL_NUMERICS, structure=structure,
+                 median_ms=float(np.median(ms)), max_ms=float(ms.max()))
+    gaps = szz_gaps(stress[:, 2], structure, leg_a)
+    for k, (st, secs) in enumerate(zip(sim.step_stats, sim.step_times)):
+        kr = st["krylov_iters"]
+        rel, name = gaps[k]
+        log(f"[{label}] step {k + 1} dt {REPL_DTS[k]}: {secs:.2f} s, first "
+            f"NR {st['first_nr']}, {st['subdivided']} sub-solve(s), last NR "
+            f"{st['nr_iters']}, Krylov/NR {kr} (mean "
+            f"{np.mean(kr) if kr else 0:.1f}); szz {stress[k, 2]:.6g}, gap "
+            f"to {name}'s {rel:.3e} (bound {SLAB_SZZ_RTOL:g}); all-reduces "
+            + ", ".join(f"{c} of {b} B" for b, c in
+                        sorted(arec.steps[k].items(), reverse=True)))
+    check_szz("leg (a)", gaps)
+    nodal = 3 * sysm.nn * 8
+    check(nodal in arec.steps[0], f"no all-reduce of the {nodal} B f64 nodal "
+          "vector in step 1")
+    log(f"[{label}] {sysm.npts} points a rank ({emap.ne_pad} padded "
+        f"elements for {sysm.fes.num_elems}) over {REPL_SHARDS} shards, "
+        f"backend {rec.backend}, precond {sysm.precond_kind}, wall "
+        f"{wall:.2f} s for {nsteps} steps, peak memory "
+        f"{peak / 2**30:.3f} GiB; kernel launches {launches} of "
+        f"{sysm.npts} points each, device ms per "
+        f"launch median {float(np.median(ms)):.4f}, max "
+        f"{float(ms.max()):.4f}; a nodal all-reduce moves {nodal} B in f64, "
+        f"{nodal // 2} B in f32")
+    region_split(label, sim, wall)
+    return leg_a
+
+
+def replicated_against_single(workdir):
+    """Leg (b): MechSystem on a ReplicatedMap over REPL_SHARDS shards
+    against the single-device system at this path's numerics (Jacobi, the
+    f32 EA build) on the card."""
+    from exaconstit_tpu_torch.config.options import parse_options
+    from exaconstit_tpu_torch.driver import Simulation
+    toml = write_case(SLAB_CHECK_GRID, REPL_DTS, workdir, "voce",
+                      parallel_mode="replicated", precond="jacobi")
+    out, secs = {}, {}
+    for shards in (None, REPL_SHARDS):
+        run_dir = os.path.join(workdir, f"run_{shards}")
+        os.makedirs(run_dir)
+        opt = parse_options(toml)
+        opt.newton_rel_tol, opt.newton_abs_tol = SLAB_CHECK_NR_TOLS
+        opt.krylov_rel_tol = SLAB_CHECK_KRYLOV_TOL
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            sim = Simulation(opt, workdir=run_dir, device="cuda",
+                             shards=shards)
+            sim.run(verbose=False)
+        secs[shards] = time.perf_counter() - t0
+        sysm = sim.system
+        ne = sysm.fes.num_elems
+        state = sysm.from_state(sim.state)[:ne].copy()
+        state[:, :, 3] = 0.0  # point-solve iteration counts
+        out[shards] = dict(
+            avg=np.loadtxt(os.path.join(run_dir, "avg_stress.txt"),
+                           ndmin=2),
+            stress=sysm.from_stress(sim.stress)[:ne], state=state,
+            v=sysm.from_node(sim.v), mode=sim.parallel_mode,
+            f32=sysm.ea_asm_f32, precond=sysm.precond_kind)
+    one, rep = out[None], out[REPL_SHARDS]
+    check(one["mode"] == "single" and rep["mode"] == "replicated"
+          and one["f32"] and rep["f32"] and one["precond"] == "jacobi"
+          == rep["precond"], f"leg (b) ran {one['mode']} and {rep['mode']}")
+    gaps = {}
+    for name, rtol, atol in (("avg", 1e-5, 1e-12), ("stress", 1e-6, 1e-9),
+                             ("state", 1e-6, 1e-9), ("v", 0.0, 1e-9)):
+        a, b = rep[name], one[name]
+        excess = float(np.max(np.abs(a - b) - (atol + rtol * np.abs(b))))
+        gaps[name] = float(np.max(np.abs(a - b)))
+        check(excess <= 0.0, f"replicated and single-device {name} differ "
+              f"by {gaps[name]:.3e} (rtol {rtol:g}, atol {atol:g})")
+    log(f"[18 replicated {'x'.join(map(str, SLAB_CHECK_GRID))}] "
+        f"{REPL_SHARDS} shards against one device on the card, "
+        f"{len(REPL_DTS)} steps: max abs diff "
+        + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+        + f" ({secs[REPL_SHARDS]:.1f} s sharded, {secs[None]:.1f} s single)")
+
+
+def replicated_cpu_vs_cuda(workdir):
+    """Leg (c): each configuration the slab refuses, and the point-major
+    half, over REPL_SHARDS replicated shards at 4^3, the card against the
+    CPU."""
+    for name, (family, options, tol) in REPL_VARIANTS.items():
+        tag = name.replace(" ", "_").replace(",", "")
+        out, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            sim, out[dev] = run_case((4, 4, 4), REPL_DTS, dev,
+                                     os.path.join(workdir, f"{tag}_{dev}"),
+                                     family, shards=REPL_SHARDS, **options)
+            secs[dev] = time.perf_counter() - t0
+            check(sim.parallel_mode == "replicated", f"leg (c) {name} ran "
+                  f"{sim.parallel_mode} on {dev}")
+        rel = float(np.max(np.abs(out["cuda"] - out["cpu"]))
+                    / np.max(np.abs(out["cpu"])))
+        check(np.isfinite(out["cuda"]).all() and rel <= tol,
+              f"replicated {name}: CUDA and CPU average stress differ by "
+              f"rel {rel:.3e} > {tol:g}")
+        log(f"[18 replicated {name} cuda vs cpu 4^3, {REPL_SHARDS} shards, "
+            f"2 steps] max rel diff {rel:.3e} (bound {tol:g}; "
+            f"{secs['cuda']:.1f} s on the card, {secs['cpu']:.1f} s on the "
+            "CPU)")
+
+
+def replicated_cards(workdir):
+    """Leg (d): with two cards or more, 2 NCCL ranks under torchrun, one
+    card each, REPL_CARDS_SHARDS shards, against one process's stacked
+    shards on the final checkpoint's arrays (SLAB_RANKS_TOLS)."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"[18 replicated] two-card NCCL leg not run: {cards} card")
+        return
+    nsteps = len(REPL_DTS)
+    toml = write_case((32, 32, 32), REPL_DTS, workdir, "voce",
+                      parallel_mode="replicated", checkpoint_steps=nsteps)
+    penv = dict(os.environ, PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)) + os.pathsep
+        + os.environ.get("PYTHONPATH", ""))
+    ends, secs, steps = {}, {}, {}
+    for ranks in (1, 2):
+        run_dir = os.path.join(workdir, f"run_{ranks}ranks")
+        os.makedirs(run_dir)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(ranks), "--local-ranks-filter", "0",
+             "-m", "exaconstit_tpu_torch.cli", "-opt", toml, "-q",
+             "--shards", str(REPL_CARDS_SHARDS)],
+            cwd=run_dir, env=penv, capture_output=True, text=True,
+            timeout=900)
+        secs[ranks] = time.perf_counter() - t0
+        check(proc.returncode == 0, f"the {ranks}-rank replicated run "
+              "failed:\n" + proc.stdout[-3000:] + proc.stderr[-3000:])
+        with np.load(os.path.join(run_dir, "checkpoint",
+                                  "checkpoint.npz")) as ck:
+            ends[ranks] = {k: ck[k].copy() for k in
+                           ("x_beg", "v", "stress", "state")}
+        ends[ranks]["state"][:, :, 3] = 0.0  # iteration counts
+        steps[ranks] = [round(float(t), 2) for t in np.loadtxt(os.path.join(
+            run_dir, "timing", "time_solve.0.txt"), ndmin=1)]
+    rtol, atol = SLAB_RANKS_TOLS
+    diffs, bad = {}, []
+    for name, want in ends[1].items():
+        a = ends[2][name]
+        diffs[name] = ("bitwise" if np.array_equal(a, want) else
+                       f"{float(np.max(np.abs(a - want))):.3e}")
+        if np.max(np.abs(a - want) - (atol + rtol * np.abs(want))) > 0:
+            bad.append(name)
+    log(f"[18 replicated 32^3] two cards, 2 NCCL ranks x "
+        f"{REPL_CARDS_SHARDS // 2} shards against one rank's "
+        f"{REPL_CARDS_SHARDS}: {secs[2]:.1f} s and {secs[1]:.1f} s with the "
+        f"processes' start, step seconds on rank 0 {steps[2]} and "
+        f"{steps[1]}; end state max abs diff: "
+        + ", ".join(f"{k} {v}" for k, v in diffs.items()))
+    check(not bad, f"two cards and one card differ in {bad} beyond rtol "
+          f"{rtol:g} / atol {atol:g}: {diffs}")
+
+
+def phase_replicated(workdir, main_path=None):
+    t0 = time.perf_counter()
+    leg_a = replicated_cli(os.path.join(workdir, "a"), main_path)
+    replicated_against_single(os.path.join(workdir, "b"))
+    replicated_cpu_vs_cuda(os.path.join(workdir, "c"))
+    replicated_cards(os.path.join(workdir, "d"))
+    leg_a["seconds"] = time.perf_counter() - t0
+    log(f"[18 replicated] {leg_a['seconds']:.1f} s for the phase")
+    return leg_a
+
+
 PHASES = ("stage", "staggered", "main", "cpu", "mtsdd", "mesh_pa",
           "variants", "f32", "profile", "guard", "make_step", "loading",
-          "slab")
+          "slab", "replicated")
 
 
 def main(argv=None):
@@ -1660,6 +1968,9 @@ def main(argv=None):
                 phase_loading(os.path.join(tmp, "loading"))
             if "slab" in only:
                 slab = phase_slab(os.path.join(tmp, "slab"), main_path)
+            if "replicated" in only:
+                replicated = phase_replicated(os.path.join(tmp, "replicated"),
+                                              main_path)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
@@ -1684,7 +1995,10 @@ def main(argv=None):
         "launches_mesh_pa_path": mesh_pa["launches"],
         "launches_f32_path": f32["launches"],
         "launches_per_make_step": step["launches"],
-        "launches_slab_path": slab["launches"]}]}))
+        "launches_slab_path": slab["launches"],
+        "launches_replicated_path": replicated["launches"],
+        "replicated_path_ms_per_launch_median": replicated["median_ms"],
+        "replicated_path_ms_per_launch_max": replicated["max_ms"]}]}))
     log(f"[16 total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,14 +9,19 @@ With ``EXACONSTIT_TPU_PROFILE_DIR`` set the run is traced by
 Under ``torchrun`` (or with ``EXACONSTIT_TPU_DIST=1`` and its variables)
 the run starts a process group first (``parallel.sharding.
 init_distributed``: NCCL, one card per rank, or gloo on the CPU) and is
-spread over ``--shards`` slab shards, by default one per rank:
+spread over ``--shards`` shards, by default one per rank:
 
     torchrun --nproc-per-node N -m exaconstit_tpu_torch.cli -opt case.toml
 
 ``--shards S`` (a multiple of the ranks) stacks S / N shards on each
-rank's device, also in one process without a launcher.  Every rank
-writes its step times to ``timing/time_solve.<rank>.txt``; only rank 0
-writes the run's other outputs.
+rank's device, also in one process without a launcher.  Over shards the
+options file's ``Solvers.parallel_mode`` picks the system as the
+reference does: the slab domain decomposition ("auto" or "slab", an
+ExaCMech material with PCG on a mesh it partitions) or the
+replicated-node element sharding ("replicated", "single", and "auto"
+on everything else).  Every rank writes its step times to
+``timing/time_solve.<rank>.txt``; only rank 0 writes the run's other
+outputs.
 """
 
 from __future__ import annotations
@@ -38,9 +43,11 @@ def main(argv=None):
                         help="torch device (default cuda; cpu runs on the "
                              "CPU)")
     parser.add_argument("--shards", type=int, default=None,
-                        help="slab shards to spread the run over, a "
-                             "multiple of the ranks (default: one per rank "
-                             "under a launcher, none in one process)")
+                        help="shards to spread the run over (the slab or "
+                             "the replicated-node system, as "
+                             "Solvers.parallel_mode picks), a multiple of "
+                             "the ranks (default: one per rank under a "
+                             "launcher, none in one process)")
     args = parser.parse_args(argv)
 
     from .driver import run_simulation

@@ -20,10 +20,12 @@ dogleg iteration reads its stop test on the host.  As in the reference,
 guards (``utils/guards.py``), both read when a ``MechSystem`` is built.
 
 Spread over shards (``Simulation(shards=...)``, the CLI's ``--shards``
-or one shard per rank of a process group) a run takes the slab domain
-decomposition, ``parallel/slab_system.SlabMechSystem``, as the
-reference's ``Simulation`` does on a device mesh; every host step here
-is the same on every rank, and only rank 0 writes files.
+or one shard per rank of a process group) a run takes, as the
+reference's ``Simulation`` does on a device mesh, the slab domain
+decomposition (``parallel/slab_system.SlabMechSystem``) or the
+replicated-node element sharding (``MechSystem`` on a
+``parallel/replicated.ReplicatedMap``); every host step here is the
+same on every rank, and only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from .mesh.voxel import HexMesh, make_cartesian_mesh
 from .models.ecmech import build_model
 from .models.umat import UmatLibrary, UmatModel
 from .parallel import sharding
+from .parallel.replicated import ReplicatedMap
 from .solvers import gmg
 from .solvers.krylov import gmres, minres, pcg, pcg_refined
 from .utils.guards import check_finite, numerics_checks_enabled
@@ -177,10 +180,18 @@ class MechSystem:
     kernel's mixed-precision stage needs an f64 run, as the reference's
     does.
 
-    A caller's ``emap`` over a partition of the mesh (the slab's
-    ``SlabMap``, holding ``emap.ne`` of the elements) stands for the
-    reference's device mesh: the system then warm-starts every point
-    solve (no point-major half) and never takes GMG."""
+    A caller's ``emap`` over shards of the mesh (``emap.layout``, this
+    rank's ``emap.ne`` elements, pads included, with ``emap.real`` the
+    real ones) stands for the reference's device mesh: the system never
+    takes GMG, and the volume averages and the largest deformation rate
+    leave out the pad elements and add up over all shards.  The element
+    map's scatter-add skips the pads, which zeroes their force, operator
+    and diagonal as the reference's element mask does.  The
+    replicated-node ``parallel/replicated.ReplicatedMap`` keeps the
+    point-major half, the f32 EA build and the warm starts of one
+    device, as the reference does; the slab's ``SlabMap``
+    (``warm_everywhere``) warm-starts every point solve, and its system
+    asks for the f64 EA build."""
 
     def __init__(self, opt: ExaOptions, mesh: HexMesh, model,
                  device="cuda", ea_asm_f32=None, emap=None):
@@ -192,8 +203,9 @@ class MechSystem:
         self.bbar = opt.integ_type == IntegrationType.BBAR
         self.pa = opt.assembly == Assembly.PA and not self.bbar
         sharded = emap is not None
-        self.point_major = not sharded and (self.bbar or self.pa
-                                            or model.point_major)
+        self.layout = emap.layout if sharded else None
+        self.point_major = (self.bbar or self.pa or model.point_major) \
+            and not getattr(emap, "warm_everywhere", False)
         if sharded:
             self.emap = emap
         elif mesh.structure is not None:
@@ -253,23 +265,43 @@ class MechSystem:
         return torch.as_tensor(np.asarray(mask).T.reshape(-1),
                                device=self.device)
 
+    def _gather_ranks(self, dev):
+        """(world_size, *dev.shape) host array of every rank's ``dev``
+        (collective over shards: every rank must reach it)."""
+        if self.layout is None:
+            return dev.cpu().numpy()[None]
+        return self.layout.allgather_blocks(dev).cpu().numpy()
+
     def to_state(self, pm):
-        """Host (ne, nq, k) qpt field -> (k, nq*ne) device tensor."""
-        a = np.asarray(pm)
+        """Host (ne, nq, k) qpt field -> (k, nq*ne) device tensor; its
+        real elements' rows, whatever padding ``pm`` has.  Over shards
+        this rank's elements of the list padded with element 0's rows."""
+        a = np.asarray(pm)[:self.fes.num_elems]
+        if self.layout is not None:
+            emap = self.emap
+            a = np.concatenate([a, np.repeat(a[:1], emap.ne_pad - len(a),
+                                             axis=0)])
+            first = self.layout.first * emap.ne_per
+            a = a[first:first + self.ne]
         return torch.as_tensor(a.transpose(2, 1, 0).reshape(a.shape[2], -1),
                                dtype=self.dtype, device=self.device)
 
     def from_state(self, dev):
-        a = dev.cpu().numpy()
-        return a.reshape(a.shape[0], self.nq, self.ne).transpose(2, 1, 0)
+        """(k, nq*ne) -> host (ne, nq, k); over shards (ne_pad, nq, k),
+        gathered over the ranks, as the reference's checkpoint holds it."""
+        a = self._gather_ranks(dev)
+        a = a.reshape(a.shape[0], a.shape[1], self.nq, self.ne)
+        return a.transpose(0, 3, 2, 1).reshape(-1, self.nq, a.shape[1])
 
     # stress shares the (k, npts) <-> (ne, nq, k) transform
     to_stress = to_state
     from_stress = from_state
 
     def from_elem(self, dev):
-        """(k, ne) per-element device field -> host (ne, k)."""
-        return dev.cpu().numpy().T
+        """(k, ne) per-element device field -> host (ne, k) over the real
+        elements (gathered over the ranks)."""
+        a = self._gather_ranks(dev).transpose(0, 2, 1)
+        return a.reshape(-1, a.shape[2])[:self.fes.num_elems]
 
     def _ess_flat(self, ess_mask):
         if torch.is_tensor(ess_mask) and ess_mask.ndim == 1:
@@ -446,10 +478,21 @@ class MechSystem:
 
     def vol_avg(self, values_q, el_x, divide=True):
         """Volume-weighted average (or, without ``divide``, the volume
-        integral) of a (k, nq, ne) field."""
+        integral) of a (k, nq, ne) field.  Over shards, over the real
+        elements of all of them: per-shard sums of the weighted values
+        and of the weights, then their sums over the shards in shard
+        order (the same whatever the ranks)."""
         wts = ops.quad_point_volumes_cm(el_x, self.dshape, self.qwts)
-        s = torch.einsum("qe,kqe->k", wts, values_q)
-        return s / torch.sum(wts) if divide else s
+        lay = self.layout
+        if lay is None:
+            s = torch.einsum("qe,kqe->k", wts, values_q)
+            return s / torch.sum(wts) if divide else s
+        wts = torch.where(self.emap.real, wts, 0.0)
+        terms = torch.cat([values_q * wts, wts[None]])  # (k + 1, nq, ne)
+        sums = lay.sum_shards(terms.reshape(
+            -1, self.nq, lay.s_local, self.ne // lay.s_local), axis=2,
+            keep=1)
+        return sums[:-1] / sums[-1] if divide else sums[:-1]
 
     def _deff(self, v, x_beg, dt):
         """(nq, ne) effective deformation rate at the end-of-step
@@ -463,9 +506,14 @@ class MechSystem:
         return deff.reshape(self.nq, self.ne)
 
     def max_deff(self, v, x_beg, dt):
-        """The largest effective deformation rate over the points, a 0-d
-        tensor (the reference's ``_max_deff``)."""
-        return self._deff(v, x_beg, dt).max()
+        """The largest effective deformation rate over the points (over
+        shards, the real elements' of all ranks), a 0-d tensor (the
+        reference's ``_max_deff``)."""
+        deff = self._deff(v, x_beg, dt)
+        if self.layout is None:
+            return deff.max()
+        deff = torch.where(self.emap.real, deff, 0.0)
+        return self.layout.allreduce_max(deff.max())
 
     # -- Newton solve ---------------------------------------------------------
 
@@ -616,7 +664,8 @@ def _euler_to_quat(euler):
 
 class Simulation:
     """The time loop on one device or, with ``shards``, on the slab
-    domain decomposition (see ``_make_system``)."""
+    domain decomposition or the replicated-node element sharding (see
+    ``_make_system``)."""
 
     def __init__(self, opt: ExaOptions, workdir: str | None = None,
                  device="cuda", shards: int | None = None):
@@ -690,17 +739,18 @@ class Simulation:
 
     def _make_system(self, device, shards):
         """The system the run takes, as the reference's ``Simulation``
-        chooses it (``parallel_mode`` in ``self.parallel_mode``).
+        chooses it on a device mesh (``parallel_mode`` in
+        ``self.parallel_mode``).
 
         ``shards`` None means one shard per rank when the process group
         has more than one rank (unless ``parallel_mode = "single"``), and
         one device otherwise.  Over shards, "auto" and "slab" take the
-        slab with an ExaCMech material and PCG; under "auto" a mesh the
-        slab cannot partition falls through to the reference's
-        replicated-node sharding, which is not ported (ROADMAP A13b):
-        that, "replicated", "single" with shards and "auto" with a
-        configuration the slab does not cover raise.  "slab" with a
-        UMAT or another solver raises."""
+        slab with an ExaCMech material and PCG; "slab" with a UMAT or
+        another solver, or a mesh it cannot partition, raises.  Every
+        other choice takes the replicated-node element sharding
+        (``parallel/replicated.py``): "replicated", "single" with shards,
+        "auto" with a configuration the slab does not cover, and "auto"
+        on a mesh it cannot partition (printing why)."""
         opt = self.opt
         mode = opt.parallel_mode
         world = sharding.world_size()
@@ -724,17 +774,19 @@ class Simulation:
             except ValueError as e:
                 if mode == "slab":
                     raise
-                print(f"slab partition unavailable ({e})")
+                print(f"slab partition unavailable ({e}); using "
+                      "replicated-node element sharding")
         elif mode == "slab":
             raise ValueError(
                 "Solvers.parallel_mode = 'slab' requires an ExaCMech "
                 "material and the PCG Krylov solver (got "
                 f"mech_type={opt.mech_type.name}, "
                 f"solver={opt.solver.name})")
-        raise ValueError(
-            f"parallel_mode = {mode!r} over {shards} shards needs the "
-            "reference's replicated-node sharding, which the port does not "
-            "have yet (ROADMAP A13b)")
+        emap = ReplicatedMap(self.mesh.conn, self.mesh.num_nodes,
+                             sharding.ShardLayout.create(shards, device))
+        self.parallel_mode = "replicated"
+        return MechSystem(opt, self.mesh, self.model, device=device,
+                          emap=emap)
 
     def _ecmech_state(self):
         """Initial point-major state: the orientation file's quaternions
@@ -766,7 +818,8 @@ class Simulation:
         orientation rows spliced in at ``grain_statevar_offset`` (< 0:
         at the end)."""
         opt = self.opt
-        nq, npts = self.system.nq, self.system.npts
+        nq = self.system.nq
+        npts = self.mesh.num_elems * nq
         sv = np.loadtxt(opt.abspath(opt.state_file)).reshape(-1)
         if sv.size != opt.numStateVars:
             raise ValueError(f"state file has {sv.size} values, expected "
@@ -984,14 +1037,15 @@ def run_simulation(toml_path: str, workdir: str | None = None,
                    shards: int | None = None):
     """Parse the options file and run the whole simulation on ``device``
     (default: the card; ``device="cpu"`` runs on the CPU), over
-    ``shards`` slab shards if given (``Simulation``)."""
+    ``shards`` shards if given (``Simulation``)."""
     set_precision_policy()
     opt = parse_options(toml_path)
     with torch.inference_mode():
         sim = Simulation(opt, workdir=workdir, device=device, shards=shards)
         if verbose and sim.parallel_mode != "single":
-            print(f"domain decomposition over {sim.system.layout.n_shards} "
-                  f"shards on {sharding.world_size()} rank(s) "
+            print(f"{sim.parallel_mode} domain decomposition over "
+                  f"{sim.system.layout.n_shards} shards on "
+                  f"{sharding.world_size()} rank(s) "
                   f"(Solvers.parallel_mode = {opt.parallel_mode})")
         sim.run(verbose=verbose)
     return sim

@@ -8,9 +8,12 @@ compressed ``.npz`` holding ``x_beg`` and ``v`` (nn, 3), ``state`` and
 brick or mesh file) and the model (an ExaCMech history or a UMAT's F,
 stress and user state).  A checkpoint written by either package resumes
 in the other.  All simulation state is explicit,
-so a resumed run repeats the uninterrupted one exactly.  Over the slab's
-shards every rank gathers the arrays (collectively) and rank 0 writes;
-every rank reads the archive back.
+so a resumed run repeats the uninterrupted one exactly.  Over shards
+every rank gathers the arrays (collectively) and rank 0 writes; every
+rank reads the archive back.  The replicated-node element sharding
+writes the reference's ``ne_pad`` rows (the pad elements, copies of
+element 0, at the end); every system reads the real rows of an archive
+whatever its padding.
 """
 
 from __future__ import annotations

@@ -8,8 +8,9 @@ the element centroid and the full elastic strain in the crystal frame
 deformation gradient and its user state variables instead (the JAX
 package's dump knows only the ExaCMech names).  The averages are computed on the
 simulation's device from its component-major fields and leave it in one
-transfer per dump (``MechSystem.from_elem``: over the slab's shards a
-gather over all ranks, in the mesh's element order); only rank 0 writes.
+transfer per dump (``MechSystem.from_elem``: over shards a gather over
+all ranks, in the mesh's element order, without the pad elements); only
+rank 0 writes.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """Shards within a rank, ranks within a process group: the layout and
-the collectives of the slab domain decomposition.
+the collectives of the slab domain decomposition and of the
+replicated-node element sharding.
 
 Port of ``exaconstit_tpu.parallel.sharding`` and of the multi-process
 start of ``exaconstit_tpu.cli``.  The JAX package spreads a run over a
@@ -164,14 +165,19 @@ class ShardLayout:
         shard blocks (zero blocks for the other ranks' shards), so each
         shard's sum rounds alike whatever the ranks; the sums are added in
         shard order after a reduction that adds only zeros to them, as
-        the reference's ``psum`` of per-device sums."""
+        the reference's ``psum`` of per-device sums.  One rank holds every
+        shard: it adds them before the reduction, which then moves one
+        sum."""
         blocks = x.movedim(axis, 0)
         if self.world_size == 1:
             stack = blocks.contiguous()
         else:
             stack = x.new_zeros((self.n_shards,) + blocks.shape[1:])
             stack[self.first:self.first + self.s_local] = blocks
-        parts = stack.sum(dim=tuple(range(1 + keep, stack.ndim)))
+        dims = tuple(range(1 + keep, stack.ndim))
+        parts = stack.sum(dim=dims) if dims else stack  # () sums all
+        if self.world_size == 1:
+            return self.allreduce_sum(parts.sum(dim=0))
         return self.allreduce_sum(parts).sum(dim=0)
 
     def allgather_blocks(self, t):

@@ -183,6 +183,10 @@ class SlabMap:
     hold for the shared nodes: both directions send the partials taken
     before either add."""
 
+    # the reference's slab runs every assembly warm-started: MechSystem
+    # keeps no point-major half on this map
+    warm_everywhere = True
+
     def __init__(self, part: SlabPartition, layout: ShardLayout):
         self.part, self.layout = part, layout
         sl, nl1 = layout.s_local, part.n_loc + 1

@@ -21,8 +21,9 @@ The host side still speaks the reference's global point-major shapes:
 ``to_node`` / ``from_node``, ``to_state`` / ``from_state`` and
 ``from_elem`` convert, and the ``from_*`` gather over all ranks, so
 every rank must reach them.  ``MechSystem``'s Newton, line search,
-SolveInit, ``make_step`` and its setup, residual, operator and Krylov
-code run unchanged on these layouts: the element map is the slab's
+SolveInit, ``make_step``, its setup, residual, operator and Krylov
+code and its pad-masked volume averages and largest deformation rate
+run unchanged on these layouts: the element map is the slab's
 ``SlabMap``, and the inner products and norms go through the
 owner-masked ``dot``.
 
@@ -43,7 +44,6 @@ import torch
 
 from ..config.options import KrylovSolver
 from ..driver import MechSystem, resolve_device
-from ..fem import operators as ops
 from .sharding import ShardLayout
 from .slab import SlabMap, build_slab_partition, to_global, to_local
 
@@ -56,13 +56,13 @@ class SlabMechSystem(MechSystem):
         if opt.solver != KrylovSolver.PCG:
             raise ValueError("slab mode supports the PCG Krylov path; "
                              "set Solvers.Krylov.solver = 'PCG'")
-        self.layout = ShardLayout.create(n_shards, resolve_device(device))
+        layout = ShardLayout.create(n_shards, resolve_device(device))
         self.part = build_slab_partition(np.asarray(mesh.conn),
                                          mesh.num_nodes, n_shards)
-        # the slab's map makes the system the reference's on a device
-        # mesh: warm point solves everywhere, Jacobi only
+        # the slab's map makes the system the reference's slab: warm
+        # point solves everywhere, Jacobi only, the f64 EA build
         super().__init__(opt, mesh, model, device=device, ea_asm_f32=False,
-                         emap=SlabMap(self.part, self.layout))
+                         emap=SlabMap(self.part, layout))
 
     # -- per-iteration compute ----------------------------------------------
 
@@ -79,22 +79,6 @@ class SlabMechSystem(MechSystem):
 
     def norm(self, r):
         return torch.sqrt(self.dot(r, r))
-
-    def vol_avg(self, values_q, el_x, divide=True):
-        """Over the real elements of all shards: per-shard sums of the
-        weighted values and of the weights, then their sums over the
-        shards in shard order (the same whatever the ranks)."""
-        wts = ops.quad_point_volumes_cm(el_x, self.dshape, self.qwts)
-        wts = torch.where(self.emap.real, wts, 0.0)
-        terms = torch.cat([values_q * wts, wts[None]])  # (k + 1, nq, ne)
-        sums = self.layout.sum_shards(terms.reshape(
-            -1, self.nq, self.layout.s_local, self.part.ne_per), axis=2,
-            keep=1)
-        return sums[:-1] / sums[-1] if divide else sums[:-1]
-
-    def max_deff(self, v, x_beg, dt):
-        deff = torch.where(self.emap.real, self._deff(v, x_beg, dt), 0.0)
-        return self.layout.allreduce_max(deff.max())
 
     # -- layout adapters (host global point-major <-> device slab) ----------
 

@@ -20,6 +20,9 @@ JAX package's on 8 virtual devices.
   JAX ``Simulation`` on ``make_device_mesh(8)`` and the port's
   ``Simulation(shards=8)`` on the CPU: average stress to rel 1e-6 of its
   largest entry (the Newton tolerance level; both take the slab).
+* The replicated-node element sharding the same way: the elastic UMAT at
+  3x3x3 with ``parallel_mode = "replicated"`` as 2 gloo ranks x 4 shards
+  against 1 process x 8 shards, every checkpoint array bitwise equal.
 * The start and its refusals: ``init_distributed`` with no launch, a
   missing variable, two ranks on one card and no card; a CUDA layout
   over a gloo group.
@@ -63,10 +66,10 @@ def _env(rank=None, world=None, port=None):
     return env
 
 
-def _launch(workdir, toml, env):
+def _launch(workdir, toml, env, quiet=True):
     return subprocess.Popen(
         [sys.executable, "-m", "exaconstit_tpu_torch.cli", "-opt", toml,
-         "-q", "--device", "cpu", "--shards", "8"],
+         *(["-q"] if quiet else []), "--device", "cpu", "--shards", "8"],
         cwd=workdir, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
 
@@ -75,6 +78,7 @@ def _finish(procs, what):
     outs = [p.communicate(timeout=600)[0] for p in procs]
     for i, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"{what} {i} failed:\n{out[-4000:]}"
+    return outs
 
 
 def test_two_gloo_ranks_match_one_process(tmp_path):
@@ -109,6 +113,44 @@ def test_two_gloo_ranks_match_one_process(tmp_path):
     assert sorted(os.listdir(shared / "timing")) == [
         "time_solve.0.txt", "time_solve.1.txt"]
     assert os.listdir(single / "timing") == ["time_solve.0.txt"]
+
+
+def test_two_gloo_ranks_replicated_umat_match_one_process(tmp_path):
+    """The elastic UMAT at 3x3x3 (27 elements: 5 pad elements over 8
+    shards, a rank's last shard all pads) with ``parallel_mode =
+    "replicated"`` through the CLI as 2 gloo ranks x 4 shards against 1
+    process x 8 shards: every array of the final checkpoint bitwise
+    equal (each shard's partial sums are added in shard order whatever
+    the ranks), the averages written once by rank 0 only, the archive
+    holding the 32 padded rows."""
+    toml = cases.write_umat_case(
+        str(tmp_path / "case"), (3, 3, 3), (0.5, 0.5),
+        parallel_mode="replicated", checkpoint_steps=2, paraview=True,
+        vis_steps=1)
+    shared, single = tmp_path / "two", tmp_path / "one"
+    shared.mkdir()
+    single.mkdir()
+    port = _free_port()
+    procs = [_launch(shared, toml, _env(rank, 2, port), quiet=False)
+             for rank in range(2)]
+    procs.append(_launch(single, toml, _env(), quiet=False))
+    outs = _finish(procs, "process")
+    for out in outs:
+        assert "replicated domain decomposition over 8 shards" in out
+    a2 = np.loadtxt(shared / "avg_stress.txt", ndmin=2)
+    a1 = np.loadtxt(single / "avg_stress.txt", ndmin=2)
+    assert a2.shape == (2, 6) and np.isfinite(a2).all()
+    np.testing.assert_array_equal(a2, a1)
+    with np.load(shared / "checkpoint" / "checkpoint.npz") as ck2, \
+            np.load(single / "checkpoint" / "checkpoint.npz") as ck1:
+        assert sorted(ck2.files) == sorted(ck1.files)
+        assert ck2["state"].shape[:2] == (32, 8)
+        for k in ck1.files:
+            np.testing.assert_array_equal(ck2[k], ck1[k], err_msg=k)
+    pvd = (shared / "results" / "exaconstit.pvd").read_text()
+    assert pvd.count("<DataSet") == 2
+    assert sorted(os.listdir(shared / "timing")) == [
+        "time_solve.0.txt", "time_solve.1.txt"]
 
 
 @pytest.fixture

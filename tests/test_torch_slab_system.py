@@ -21,7 +21,8 @@ across) atol 2e-12 in the same iterations; the converged velocity atol
 the single device: the slab warm-starts their point solves as the
 reference's slab does, the single device starts them cold, so velocity
 atol 1e-11 and stress and state atol 1e-9.  And the configurations the
-slab refuses.
+slab refuses, and those it does not take, which run on the
+replicated-node element sharding as the JAX ``Simulation`` picks it.
 """
 
 import numpy as np
@@ -32,6 +33,7 @@ import jax
 import torch.distributed as dist
 
 from exaconstit_tpu.config import options as J_OPT
+from exaconstit_tpu.driver import Simulation as JSimulation
 from exaconstit_tpu.mesh.voxel import make_cartesian_mesh as j_mesh
 from exaconstit_tpu.models.ecmech import build_model as j_build_model
 from exaconstit_tpu.parallel.sharding import make_device_mesh
@@ -299,37 +301,71 @@ def test_process_group_of_one_rank_changes_nothing(port):
 @pytest.mark.parametrize("mode,family,options,match", [
     ("slab", "voce", dict(krylov_solver="GMRES"), "requires an ExaCMech"),
     ("slab", "umat", {}, "requires an ExaCMech"),
-    ("replicated", "voce", {}, "A13b"),
-    ("auto", "umat", {}, "A13b"),
 ])
 def test_configurations_the_slab_refuses(mode, family, options, match,
                                          tmp_path):
-    if family == "umat":
-        toml = cases.write_umat_case(str(tmp_path / "case"), (2, 2, 8),
-                                     (0.1,), parallel_mode=mode, **options)
-    else:
-        toml = cases.write_voce_case(str(tmp_path / "case"), (2, 2, 8),
-                                     (0.1,), ngrains=4, parallel_mode=mode,
-                                     **options)
+    toml = _case(tmp_path, mode, family, **options)
     with pytest.raises(ValueError, match=match):
         Simulation(parse_options(toml), workdir=str(tmp_path), device="cpu",
                    shards=8)
 
 
+def _case(tmp_path, mode, family, ncuts=(2, 2, 8), **options):
+    if family == "umat":
+        return cases.write_umat_case(str(tmp_path / "case"), ncuts, (0.1,),
+                                     parallel_mode=mode, **options)
+    return cases.write_voce_case(str(tmp_path / mode), ncuts, (0.1,),
+                                 ngrains=4, parallel_mode=mode, **options)
+
+
+def _mode_and_run(toml, tmp_path, shards=8):
+    """The mode the JAX ``Simulation`` picks on 8 devices (built, not
+    run) and the port's over ``shards`` (built and run one step)."""
+    want = JSimulation(J_OPT.parse_options(toml), workdir=str(tmp_path),
+                       device_mesh=make_device_mesh(8)).parallel_mode
+    with torch.inference_mode():
+        sim = Simulation(parse_options(toml), workdir=str(tmp_path),
+                         device="cpu", shards=shards)
+        sim.run(verbose=False)
+    assert len(sim.step_stats) == 1
+    assert np.isfinite(sim.system.from_stress(sim.stress)).all()
+    return sim.parallel_mode, want
+
+
+@pytest.mark.parametrize("mode,family", [("replicated", "voce"),
+                                         ("auto", "umat")])
+def test_configurations_the_slab_does_not_take_run_replicated(
+        mode, family, tmp_path):
+    """"replicated", and "auto" with a UMAT (which the slab does not
+    cover), take the replicated-node element sharding over 8 shards, as
+    the JAX ``Simulation`` does on 8 devices, and run."""
+    got, want = _mode_and_run(_case(tmp_path, mode, family), tmp_path)
+    assert got == want == "replicated"
+
+
 def test_unpartitionable_mesh_under_auto_names_a13b(tmp_path, capsys):
     """A 4^3 brick over 8 shards splits z-layers: "slab" stops on the
-    partition, "auto" prints it and stops on the missing replicated
-    path; without shards both run on one device."""
-    for mode, match in (("slab", "non-adjacent"), ("auto", "A13b")):
-        toml = cases.write_voce_case(str(tmp_path / mode), (4, 4, 4),
-                                     (0.1,), ngrains=4, parallel_mode=mode)
-        with pytest.raises(ValueError, match=match):
-            Simulation(parse_options(toml), workdir=str(tmp_path),
-                       device="cpu", shards=8)
-        sim = Simulation(parse_options(toml), workdir=str(tmp_path),
-                         device="cpu")
+    partition; "auto" prints why and the reference's fallback notice and
+    takes the replicated-node element sharding (ROADMAP A13b), as the JAX
+    ``Simulation`` does on 8 devices; without shards both run on one
+    device."""
+    toml = _case(tmp_path, "slab", "voce", ncuts=(4, 4, 4))
+    with pytest.raises(ValueError, match="non-adjacent"):
+        Simulation(parse_options(toml), workdir=str(tmp_path), device="cpu",
+                   shards=8)
+    toml = _case(tmp_path, "auto", "voce", ncuts=(4, 4, 4))
+    capsys.readouterr()
+    got, want = _mode_and_run(toml, tmp_path)
+    assert got == want == "replicated"
+    notices = [ln for ln in capsys.readouterr().out.splitlines()
+               if ln.startswith("slab partition unavailable")]
+    assert len(notices) == 2 and notices[0] == notices[1]
+    assert notices[0].endswith("; using replicated-node element sharding")
+    for mode in ("slab", "auto"):
+        sim = Simulation(parse_options(_case(tmp_path, mode, "voce",
+                                             ncuts=(4, 4, 4))),
+                         workdir=str(tmp_path), device="cpu")
         assert sim.parallel_mode == "single"
-    assert "slab partition unavailable" in capsys.readouterr().out
 
 
 def test_make_step_through_slab_matches_single():
