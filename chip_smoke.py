@@ -40,7 +40,7 @@ failed check exits non-zero with no result line:
 6. the same case at 4^3 for 2 steps on the card and on the CPU (the
    plain versions there): average stress to rel 1e-6;
 7. the MTSDD path: ``run_simulation`` on the in-repo 32^3 copper FCC
-   MTSDD case (500 grains, three steps of dt 0.01) on the card, with
+   MTSDD case (500 grains, two steps of dt 0.01) on the card, with
    the additional averages, one checkpoint and one VTU/PVD dump
    written.  Its point solve is pure f64 (plain PyTorch; it must
    launch the kernel no time): per step the seconds, Newton and Krylov
@@ -58,10 +58,10 @@ failed check exits non-zero with no result line:
    Newton and Krylov counts and sigma_zz, the region timings of the
    setups, line searches and Krylov solves, the PA applies, peak memory,
    and one PA apply timed alone in f32 and f64;
-10. CUDA against CPU at 4^3 for 2 steps, average stress to rel 1e-6 (f32:
-   rel 1e-4), for each configuration the earlier phases do not run: a
-   mesh file with EA, PA, B-bar, GMRES, MINRES, the elastic UMAT, and the
-   Voce case in f32;
+10. (``--only configs``) CUDA against CPU at 4^3 for 2 steps, average
+   stress to rel 1e-6 (f32: rel 1e-4), for each configuration the earlier
+   phases do not run: a mesh file with EA, PA, B-bar, GMRES, MINRES, the
+   elastic UMAT, and the Voce case in f32;
 11. the f32 path: the 32^3 Voce case written with ``precision = "f32"``
    through the CLI on the card (plain f32 PCG with GMG, the plain f32
    trust region: the kernel must launch no time), ten steps of dt 0.01
@@ -84,7 +84,7 @@ failed check exits non-zero with no result line:
 15. ``workflows.run_loading`` at 4^3 on the card against the CPU (rel
    1e-6);
 16. a ``kernels`` JSON line; then the ``ok`` JSON line, last (after
-   phases 17 and 18);
+   phases 17 to 19);
 17. the slab domain decomposition (``parallel/``): (a) the 32^3 Voce case
    with ``parallel_mode = "slab"`` and Jacobi through the CLI under
    torchrun's variables for a world size of 1 (an NCCL process group),
@@ -129,7 +129,29 @@ failed check exits non-zero with no result line:
    case in f32; (d) with two cards or more, 2 NCCL ranks x 2 shards under
    torchrun against one rank's 4 shards on the final checkpoint's arrays
    (rtol 1e-8, atol 1e-14); with one card it logs that the leg did not
-   run.
+   run;
+19. the point update's remaining knobs (``--only variants``): (a) the
+   32^3 Voce case (phase 5's steps) through ``Simulation`` with
+   ``tangent_mode = "coupled"`` on the component-major engine, the
+   kernel's launch count reset just before and read just after: per step
+   the seconds, Newton and Krylov counts, sub-solves and sigma_zz; the
+   launches and their device ms; with phase 5 run, its first two steps
+   at phase 5's sub-solves (this run's, or the same model forced to them)
+   held to phase 5's sigma_zz at rel 1e-4 (a tangent steers Newton, it
+   does not move a converged step); (b) the 32^3 Voce case with
+   ``hardness_mode = "coupled"``: the point-major path and the per-point
+   engine in f64 (the kernel launched no time), up to five dt 0.01 steps
+   while they fit 40 s (at least one): per step the seconds and counts,
+   the per-point trust
+   region's calls, loop trips and seconds, peak memory; (c) every knob of
+   the point update on the 4^3 Voce case, one dt 0.2 step, the card
+   against the CPU (rel 1e-6); (d) forward-mode JVPs of a 5-step
+   material-point curve at 262,144 points in the Voce h0, gs0 and xm: the
+   kernel's stage against the plain one (rel 1e-5 of the largest
+   tangent), both against a central difference of the curve's mean
+   sigma_zz (rel 1e-4), the values with dual inputs against those without
+   (rel 1e-12); and an MTSDD (SplineG) curve with ``ift_tangents`` at
+   1,024 points, its c1 tangent on the card against the CPU (rel 1e-6).
 """
 
 import argparse
@@ -157,7 +179,7 @@ MAIN_DTS = (0.1, 0.2, 0.5)
 # Smaller steps than the Voce path's: at 32^3 the Newton solve of this
 # family's first steps does not converge at dt 0.1 (every step starts
 # from a velocity field kinked at the loaded face's nodes; ROADMAP C8)
-MTSDD_DTS = (0.01, 0.01, 0.01)
+MTSDD_DTS = (0.01, 0.01)  # a third step was cut to make room for phase 19
 # The mesh-file PA path: the main path's first two steps.  Its third
 # (dt 0.5, across yield) passed only as 8 sub-solves, at the last retry
 MESH_PA_DTS = (0.1, 0.2)
@@ -1165,14 +1187,14 @@ class ExchangeRecorder:
 
 
 def same_structure_szz(toml, run_dir, structure, label="17 slab 32^3",
-                       dts=SLAB_DTS, numerics=SLAB_NUMERICS):
+                       dts=SLAB_DTS, numerics=SLAB_NUMERICS, knobs=None):
     """sigma_zz per step of ``toml`` on one device, step k forced to take
     ``structure[k]`` sub-solves: its whole solve and every coarser retry
     report failure without running.  A forced sub-solve may still fail
     and be retried finer (C7), so the run is tried at each of
     ``numerics`` in turn (the sharded path's own, then phase 5's: GMG,
     the f32 EA build); fails unless one of them took exactly those
-    sub-solves."""
+    sub-solves.  ``knobs`` set on the case's model runs it instead."""
     from exaconstit_tpu_torch import set_precision_policy
     from exaconstit_tpu_torch.config.options import parse_options
     from exaconstit_tpu_torch.driver import Simulation
@@ -1183,9 +1205,10 @@ def same_structure_szz(toml, run_dir, structure, label="17 slab 32^3",
         os.makedirs(wd)
         t0 = time.perf_counter()
         with torch.inference_mode():
-            opt = parse_options(toml)
+            opt, model = (parse_options(toml), None) if knobs is None \
+                else knob_model(toml, **knobs)
             opt.krylov_precond = precond
-            sim = Simulation(opt, workdir=wd, device="cuda")
+            sim = Simulation(opt, workdir=wd, device="cuda", model=model)
             sysm = sim.system
             sysm.ea_asm_f32 = ea_f32
             solve = sysm.newton_solve
@@ -1914,10 +1937,415 @@ def phase_replicated(workdir, main_path=None):
     log(f"[18 replicated] {leg_a['seconds']:.1f} s for the phase")
     return leg_a
 
+# ---------------------------------------------------------------------------
+# phase 19: the point update's remaining knobs and forward-mode sensitivities
+# ---------------------------------------------------------------------------
+
+# leg (a): phase 5's steps with the coupled tangent; leg (b): the coupled
+# hardness on the per-point engine, dt 0.01 steps while they fit in
+# VARIANT_B_BUDGET seconds (at least one)
+VARIANT_A_DTS = MAIN_DTS
+# leg (a)'s first steps held to phase 5's sigma_zz at phase 5's sub-solves
+VARIANT_A_HELD = 2
+VARIANT_B_DT, VARIANT_B_STEPS, VARIANT_B_BUDGET = 0.01, 5, 40.0
+# leg (c): each knob of the point update on the 4^3 Voce case, one dt 0.2
+# step (2 substeps), the card against the CPU (rel tolerance on the
+# average stress)
+POINT_KNOBS = {
+    "engine vmap": dict(engine="vmap"),
+    "tangent coupled": dict(tangent_mode="coupled"),
+    "hardness coupled": dict(hardness_mode="coupled"),
+    "stagger_iters 2": dict(stagger_iters=2),
+    "h_per_substep off": dict(h_per_substep=False),
+    "flow_theta 0.5": dict(flow_theta=0.5),
+    "rot_frame begin": dict(rot_frame="begin"),
+    "h_order before": dict(h_order="before", h_gd_blend=1.0),
+    "h_gd_source gd_begin": dict(h_gd_source="gd_begin", h_gd_blend=1.0),
+    "h_gd_source h_forward": dict(h_gd_source="h_forward", h_gd_blend=1.0),
+}
+POINT_KNOB_DTS, POINT_KNOB_TOL = (0.2,), 1e-6
+# leg (d): forward-mode JVPs of a material-point curve at the 32^3 case's
+# quadrature points: STEPS steps of dt, the state carried; the kernel's
+# stage against the plain stage on the card (rel of the largest tangent),
+# both against a central difference of relative step JVP_FD_H on the
+# curve's mean sigma_zz; and an MTSDD curve (SplineG, ift_tangents) at
+# JVP_MTSDD_POINTS, the card against the CPU
+JVP_POINTS, JVP_STEPS, JVP_DT = 262_144, 5, 0.1
+JVP_FIELDS = ("h0", "gs0", "xm")
+JVP_STAGE_RTOL, JVP_FD_RTOL, JVP_FD_H = 1e-5, 1e-4, 1e-6
+JVP_MTSDD_POINTS, JVP_MTSDD_FIELDS, JVP_MTSDD_RTOL = 1024, ("c1",), 1e-6
+
+
+def knob_model(opt_toml, **knobs):
+    """The options file's ECMech model with ``knobs`` set on its point
+    update, and the parsed options."""
+    from exaconstit_tpu_torch.config.options import parse_options
+    from exaconstit_tpu_torch.models.ecmech import build_model
+    opt = parse_options(opt_toml)
+    props = np.loadtxt(opt.abspath(opt.props_file)).reshape(-1)
+    m = build_model(opt, props)
+    return opt, dataclasses.replace(m, evptn=dataclasses.replace(
+        m.evptn, **knobs))
+
+
+def knob_simulation(toml, run_dir, device, knobs, dts=None):
+    """``Simulation`` on ``toml`` with the knobbed model, run; returns
+    (sim, average stress rows, wall seconds)."""
+    from exaconstit_tpu_torch import set_precision_policy
+    from exaconstit_tpu_torch.driver import Simulation
+    set_precision_policy()
+    os.makedirs(run_dir, exist_ok=True)
+    opt, model = knob_model(toml, **knobs)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        sim = Simulation(opt, workdir=run_dir, device=device, model=model)
+        sim.run(verbose=False)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stress = np.loadtxt(os.path.join(run_dir, "avg_stress.txt"), ndmin=2)
+    return sim, stress, wall
+
+
+def variants_coupled_tangent(workdir, main_path):
+    """Leg (a): the 32^3 Voce case with tangent_mode="coupled" on the
+    component-major engine, the kernel's stage in every setup."""
+    from exaconstit_tpu_torch.solvers import dogleg_cuda as dc
+    label = "19 variants (a) coupled tangent 32^3"
+    toml = write_case((32, 32, 32), VARIANT_A_DTS, workdir)
+    torch.cuda.reset_peak_memory_stats()
+    with LaunchRecorder(dc.KERNEL) as rec:
+        dc.KERNEL.launches = 0
+        sim, stress, wall = knob_simulation(
+            toml, os.path.join(workdir, "run"), "cuda",
+            dict(tangent_mode="coupled"))
+        launches = dc.KERNEL.launches
+    ms, _, _ = rec.read()
+    peak = torch.cuda.max_memory_allocated()
+    sysm = sim.system
+    check(sim.model.supports_cm and not sysm.point_major,
+          "the coupled tangent left the component-major engine")
+    check(launches > 0 and len(ms) == launches,
+          f"leg (a) launched the kernel {launches} times ({len(ms)} "
+          "recorded)")
+    check(stress.shape == (len(VARIANT_A_DTS), 6)
+          and np.isfinite(stress).all(), f"leg (a) stress {stress}")
+    for k, (st, secs) in enumerate(zip(sim.step_stats, sim.step_times)):
+        kr = st["krylov_iters"]
+        msg = (f"[{label}] step {k + 1} dt {VARIANT_A_DTS[k]}: {secs:.2f} s, "
+               f"first NR {st['first_nr']}, {st['subdivided']} "
+               f"sub-solve(s), last NR {st['nr_iters']}, Krylov/NR {kr}, "
+               f"szz {stress[k, 2]:.6g}")
+        if main_path is not None:
+            gap = abs(stress[k, 2] - main_path["szz"][k]) / abs(
+                main_path["szz"][k])
+            msg += (f"; phase 5 (lagged tangent): {main_path['subdivided'][k]}"
+                    f" sub-solve(s), szz {main_path['szz'][k]:.6g}, gap "
+                    f"{gap:.3e}")
+        log(msg)
+    structure = [st["subdivided"] for st in sim.step_stats]
+    if main_path is not None:
+        # the tangent steers Newton but must not move a converged step:
+        # phase 5's first VARIANT_A_HELD steps forced on this run's model
+        nheld = VARIANT_A_HELD
+        want = list(main_path["subdivided"][:nheld])
+        if structure[:nheld] == want:
+            szz = stress[:nheld, 2]
+        else:
+            toml2 = write_case((32, 32, 32), VARIANT_A_DTS[:nheld],
+                               os.path.join(workdir, "held"))
+            szz = same_structure_szz(
+                toml2, os.path.join(workdir, "held_run"), want, label,
+                VARIANT_A_DTS[:nheld], (("phase 5's", "auto", True),),
+                knobs=dict(tangent_mode="coupled"))
+        for k in range(nheld):
+            gap = abs(szz[k] - main_path["szz"][k]) / abs(main_path["szz"][k])
+            log(f"[{label}] step {k + 1} at phase 5's {want[k]} sub-solves: "
+                f"szz {szz[k]:.6g}, gap to phase 5's {gap:.3e} (bound "
+                f"{SLAB_SZZ_RTOL:g})")
+            check(gap <= SLAB_SZZ_RTOL, f"leg (a) szz gap {gap:.3e} > "
+                  f"{SLAB_SZZ_RTOL:g} at phase 5's sub-solves")
+    log(f"[{label}] wall {wall:.2f} s, precond {sysm.precond_kind}, peak "
+        f"{peak / 2**30:.3f} GiB, kernel launches {launches}, device ms "
+        f"per launch median {float(np.median(ms)):.4f}, max "
+        f"{float(ms.max()):.4f}")
+    return dict(launches=launches, median_ms=float(np.median(ms)),
+                max_ms=float(ms.max()), structure=structure, wall=wall,
+                szz=stress[:, 2])
+
+
+class DoglegSolveRecorder:
+    """Wraps the per-point engine's ``dogleg_solve`` for one run: calls,
+    loop trips (the largest lane's iterations: the masked loop runs until
+    its slowest lane stops) and host seconds with a synchronisation either
+    side."""
+
+    def __enter__(self):
+        from exaconstit_tpu_torch.models import evptn
+        self.mod, self.inner = evptn, evptn.dogleg_solve
+        self.calls, self.trips, self.seconds = 0, 0, 0.0
+        rec = self
+
+        def dogleg_solve(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = rec.inner(*args, **kw)
+            rec.trips += int(out[2].max())
+            rec.seconds += time.perf_counter() - t0
+            rec.calls += 1
+            return out
+
+        evptn.dogleg_solve = dogleg_solve
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.dogleg_solve = self.inner
+
+
+def variants_coupled_hardness(workdir):
+    """Leg (b): the 32^3 Voce case with hardness_mode="coupled": the
+    point-major path and the per-point engine in f64 (no kernel)."""
+    from exaconstit_tpu_torch.solvers import dogleg_cuda as dc
+    label = "19 variants (b) coupled hardness 32^3"
+    dts = (VARIANT_B_DT,) * VARIANT_B_STEPS
+    toml = write_case((32, 32, 32), dts, workdir)
+    torch.cuda.reset_peak_memory_stats()
+    from exaconstit_tpu_torch import set_precision_policy
+    from exaconstit_tpu_torch.driver import Simulation
+    set_precision_policy()
+    opt, model = knob_model(toml, hardness_mode="coupled")
+    run_dir = os.path.join(workdir, "run")
+    os.makedirs(run_dir)
+    dc.KERNEL.launches = 0
+    with DoglegSolveRecorder() as rec, torch.inference_mode():
+        t0 = time.perf_counter()
+        sim = Simulation(opt, workdir=run_dir, device="cuda", model=model)
+        sysm = sim.system
+        t, secs = 0.0, []
+        for k in range(VARIANT_B_STEPS):  # Simulation.run's loop, cut
+            s0 = time.perf_counter()
+            t += sim.advance(k + 1, VARIANT_B_DT, verbose=False)
+            sim.write_averages()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - s0)
+            if time.perf_counter() - t0 + secs[-1] > VARIANT_B_BUDGET:
+                break
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(dc.KERNEL.launches == 0, f"the per-point engine launched the "
+          f"kernel {dc.KERNEL.launches} times")
+    check(sysm.point_major and not sysm.ea_asm_f32
+          and sysm.precond_kind == "jacobi",
+          "the coupled hardness left the point-major path")
+    stress = np.loadtxt(os.path.join(run_dir, "avg_stress.txt"), ndmin=2)
+    check(np.isfinite(stress).all() and len(secs) >= 1,
+          f"leg (b) stress {stress}")
+    for k, (st, sec) in enumerate(zip(sim.step_stats, secs)):
+        log(f"[{label}] step {k + 1} dt {VARIANT_B_DT}: {sec:.2f} s, "
+            f"{st['subdivided']} sub-solve(s), NR {st['nr_iters']}, "
+            f"Krylov/NR {st['krylov_iters']}, szz {stress[k, 2]:.6g}")
+    log(f"[{label}] {len(secs)} step(s) in {wall:.2f} s with the set-up, "
+        f"peak {peak / 2**30:.3f} GiB, 0 kernel launches; per-point "
+        f"dogleg: {rec.calls} calls, {rec.trips} loop trips, "
+        f"{rec.seconds:.2f} s ({1e3 * rec.seconds / max(rec.trips, 1):.2f} "
+        f"ms a trip over {sysm.npts} points in f64)")
+    return dict(steps=len(secs), seconds=secs, trips=rec.trips,
+                dogleg_s=rec.seconds, calls=rec.calls)
+
+
+def variants_cpu_vs_cuda(workdir):
+    """Leg (c): every knob on the 4^3 Voce case, the card against the
+    CPU."""
+    toml = write_case((4, 4, 4), POINT_KNOB_DTS, workdir)
+    for name, knobs in POINT_KNOBS.items():
+        tag = name.replace(" ", "_")
+        out, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            sim, out[dev], secs[dev] = knob_simulation(
+                toml, os.path.join(workdir, f"{tag}_{dev}"), dev, knobs)
+        rel = float(np.max(np.abs(out["cuda"] - out["cpu"]))
+                    / np.max(np.abs(out["cpu"])))
+        check(np.isfinite(out["cuda"]).all() and rel <= POINT_KNOB_TOL,
+              f"knob {name}: CUDA and CPU average stress differ by rel "
+              f"{rel:.3e} > {POINT_KNOB_TOL:g}")
+        log(f"[19 variants (c) {name} cuda vs cpu 4^3] engine "
+            f"{'cm' if sim.model.supports_cm else 'per-point'}, max rel "
+            f"diff {rel:.3e} (bound {POINT_KNOB_TOL:g}; {secs['cuda']:.1f} "
+            f"s on the card, {secs['cpu']:.1f} s on the CPU)")
+
+
+def curve_inputs(model, n, seed, device):
+    """Seeded uniaxial velocity gradients (n, 3, 3) and a state part-way
+    through loading, as the port's tests make them."""
+    rng = np.random.default_rng(seed)
+    L = rng.normal(size=(n, 3, 3)) * 3e-4
+    L[:, 0, 0] -= 5e-4
+    L[:, 1, 1] -= 5e-4
+    L[:, 2, 2] += 1e-3
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    s = model.init_state(q)
+    s[:, model.IND_ESTRAIN:model.IND_ESTRAIN + 5] = rng.normal(
+        size=(n, 5)) * 5e-5
+    s[:, model.IND_HARD] *= rng.uniform(1.0, 1.5, size=n)
+    return (torch.tensor(L, device=device), torch.tensor(s, device=device))
+
+
+def jvp_curve(model, fields, theta, L, s, direction=None):
+    """(stress (STEPS, N, 6), end state, their tangents or None) of the
+    STEPS-step point curve at kinetics parameters ``theta``; with a
+    ``direction`` the parameters are dual tensors of forward-mode AD."""
+    import torch.autograd.forward_ad as fwAD
+    kin = model.evptn.kinetics
+
+    def run(params):
+        m = dataclasses.replace(model, evptn=dataclasses.replace(
+            model.evptn, kinetics=dataclasses.replace(
+                kin, **dict(zip(fields, params)))))
+        st, out = s, []
+        for _ in range(JVP_STEPS):
+            stress, st, _ = m.model_setup(JVP_DT, L, st,
+                                          compute_tangent=False)
+            out.append(stress)
+        return torch.stack(out), st
+
+    if direction is None:
+        with torch.inference_mode():
+            return (*run([float(v) for v in theta]), None, None)
+    with fwAD.dual_level():
+        th = fwAD.make_dual(torch.tensor(theta, dtype=torch.float64),
+                            torch.tensor(direction, dtype=torch.float64))
+        y, st = run(list(th.unbind()))
+        uy, us = fwAD.unpack_dual(y), fwAD.unpack_dual(st)
+
+        def tan(u):
+            return (torch.zeros_like(u.primal) if u.tangent is None
+                    else u.tangent.clone())
+
+        return uy.primal.clone(), us.primal.clone(), tan(uy), tan(us)
+
+
+def variants_jvp(workdir):
+    """Leg (d): forward-mode JVPs of the Voce point curve at 262,144
+    points on the card, the kernel's stage against the plain one and
+    both against central differences; an MTSDD (SplineG) curve with
+    ift_tangents, the card against the CPU."""
+    from exaconstit_tpu_torch.solvers import dogleg_cuda as dc
+    label = "19 variants (d) jvp"
+    model = build_ecmech("voce")
+    kin = model.evptn.kinetics
+    theta = np.array([float(getattr(kin, f)) for f in JVP_FIELDS])
+    L, s = curve_inputs(model, JVP_POINTS, 19, "cuda")
+    out = {}
+    for i, field in enumerate(JVP_FIELDS):
+        d = np.eye(len(JVP_FIELDS))[i]
+        stage = dc.dogleg_stage
+        dc.KERNEL.launches = 0
+        t0 = time.perf_counter()
+        y, st, dy_k, ds_k = jvp_curve(model, JVP_FIELDS, theta, L, s, d)
+        torch.cuda.synchronize()
+        t_k = time.perf_counter() - t0
+        launches = dc.KERNEL.launches
+        dc.dogleg_stage = dc.dogleg_stage_reference
+        try:
+            t0 = time.perf_counter()
+            _, _, dy_p, _ = jvp_curve(model, JVP_FIELDS, theta, L, s, d)
+            torch.cuda.synchronize()
+            t_p = time.perf_counter() - t0
+        finally:
+            dc.dogleg_stage = stage
+        check(launches == JVP_STEPS, f"{field}: the JVP curve launched the "
+              f"kernel {launches} times, not {JVP_STEPS}")
+        y0, st0, _, _ = jvp_curve(model, JVP_FIELDS, theta, L, s)
+        same = torch.equal(y, y0) and torch.equal(st, st0)
+        vgap = float((y - y0).abs().max() / y0.abs().max())
+        check(vgap <= 1e-12, f"{field}: the values with dual inputs differ "
+              f"from those without by rel {vgap:.3e}")
+        scale = float(dy_k.abs().max())
+        gap = float((dy_k - dy_p).abs().max()) / max(scale, 1e-300)
+        check(scale > 0.0 and gap <= JVP_STAGE_RTOL,
+              f"{field}: kernel and plain stage tangents differ by rel "
+              f"{gap:.3e} > {JVP_STAGE_RTOL:g} (largest {scale:.3e})")
+        h = JVP_FD_H * abs(theta[i])
+        yp = jvp_curve(model, JVP_FIELDS, theta + h * d, L, s)[0]
+        ym = jvp_curve(model, JVP_FIELDS, theta - h * d, L, s)[0]
+        fd = (yp - ym) / (2 * h)
+        # the curve's mean sigma_zz per step, the quantity a fit reads
+        m_k, m_p, m_fd = (float(a[..., 2].mean(dim=1).abs().max())
+                          for a in (dy_k, dy_p, fd))
+        g_k = float((dy_k[..., 2].mean(dim=1) - fd[..., 2].mean(dim=1))
+                    .abs().max()) / max(m_fd, 1e-300)
+        g_p = float((dy_p[..., 2].mean(dim=1) - fd[..., 2].mean(dim=1))
+                    .abs().max()) / max(m_fd, 1e-300)
+        pt = float((dy_k - fd).abs().max()) / scale
+        check(g_k <= JVP_FD_RTOL and g_p <= JVP_FD_RTOL,
+              f"{field}: mean szz tangent against the central difference "
+              f"rel {g_k:.3e} (kernel), {g_p:.3e} (plain) > {JVP_FD_RTOL:g}")
+        log(f"[{label} voce {JVP_POINTS}] d/d{field}: kernel stage "
+            f"{t_k:.2f} s ({launches} launches), plain stage {t_p:.2f} s; "
+            f"largest stress tangent {scale:.4e}, kernel vs plain rel "
+            f"{gap:.3e} (bound {JVP_STAGE_RTOL:g}); mean szz tangent "
+            f"{m_k:.6e} against the central difference (h {h:.3e}) rel "
+            f"{g_k:.3e} kernel, {g_p:.3e} plain (bound {JVP_FD_RTOL:g}); "
+            f"per point {pt:.3e} of the largest; values with duals "
+            + ("bitwise those without" if same else
+               f"{vgap:.3e} rel from those without"))
+        out[field] = dict(gap=gap, fd_kernel=g_k, fd_plain=g_p)
+    # MTSDD (SplineG) with the implicit-function tangents, card vs CPU
+    mt = build_ecmech("mtsdd")
+    mt = dataclasses.replace(mt, evptn=dataclasses.replace(
+        mt.evptn, ift_tangents=True, solver_tol=1e-13))
+    th = np.array([float(getattr(mt.evptn.kinetics, f))
+                   for f in JVP_MTSDD_FIELDS])
+    res, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        Lm, sm = curve_inputs(mt, JVP_MTSDD_POINTS, 23, dev)
+        t0 = time.perf_counter()
+        res[dev] = [a.cpu() for a in jvp_curve(mt, JVP_MTSDD_FIELDS, th,
+                                               Lm, sm, np.ones(1))]
+        secs[dev] = time.perf_counter() - t0
+    dy_c, dy_h = res["cuda"][2], res["cpu"][2]
+    scale = float(dy_h.abs().max())
+    gap = float((dy_c - dy_h).abs().max()) / max(scale, 1e-300)
+    check(scale > 0.0 and gap <= JVP_MTSDD_RTOL,
+          f"MTSDD JVP: card and CPU differ by rel {gap:.3e} > "
+          f"{JVP_MTSDD_RTOL:g} (largest {scale:.3e})")
+    log(f"[{label} mtsdd {JVP_MTSDD_POINTS}, ift_tangents] d/d"
+        f"{JVP_MTSDD_FIELDS[0]}: largest stress tangent {scale:.4e}, card "
+        f"vs CPU rel {gap:.3e} (bound {JVP_MTSDD_RTOL:g}); {secs['cuda']:.2f}"
+        f" s on the card, {secs['cpu']:.2f} s on the CPU")
+    return out
+
+
+def build_ecmech(family):
+    """The in-repo case's FCC ECMech model of ``family`` ("voce" or
+    "mtsdd")."""
+    from exaconstit_tpu_torch.cases import MTSDD_PROPS, VOCE_PROPS
+    from exaconstit_tpu_torch.config.options import (ExaOptions, MechType,
+                                                     SlipType, XtalType)
+    from exaconstit_tpu_torch.models.ecmech import build_model
+    opt = ExaOptions()
+    opt.mech_type = MechType.EXACMECH
+    opt.xtal_type = XtalType.FCC
+    opt.slip_type = (SlipType.POWERVOCE if family == "voce"
+                     else SlipType.MTSDD)
+    return build_model(opt, VOCE_PROPS if family == "voce" else MTSDD_PROPS)
+
+
+def phase_variants(workdir, main_path=None):
+    t0 = time.perf_counter()
+    leg_a = variants_coupled_tangent(os.path.join(workdir, "a"), main_path)
+    leg_b = variants_coupled_hardness(os.path.join(workdir, "b"))
+    variants_cpu_vs_cuda(os.path.join(workdir, "c"))
+    leg_d = variants_jvp(os.path.join(workdir, "d"))
+    leg_a["seconds"] = time.perf_counter() - t0
+    log(f"[19 variants] {leg_a['seconds']:.1f} s for the phase")
+    return dict(leg_a, b=leg_b, d=leg_d)
+
 
 PHASES = ("stage", "staggered", "main", "cpu", "mtsdd", "mesh_pa",
-          "variants", "f32", "profile", "guard", "make_step", "loading",
-          "slab", "replicated")
+          "configs", "f32", "profile", "guard", "make_step", "loading",
+          "slab", "replicated", "variants")
 
 
 def main(argv=None):
@@ -1951,7 +2379,7 @@ def main(argv=None):
                 phase_cpu_vs_cuda(tmp, "mtsdd", "8")
             if "mesh_pa" in only:
                 mesh_pa = phase_mesh_pa(os.path.join(tmp, "mesh_pa"))
-            if "variants" in only:
+            if "configs" in only:
                 for name, (family, options, tol) in VARIANTS.items():
                     phase_cpu_vs_cuda(tmp, family, "10", name, tol,
                                       **options)
@@ -1971,6 +2399,9 @@ def main(argv=None):
             if "replicated" in only:
                 replicated = phase_replicated(os.path.join(tmp, "replicated"),
                                               main_path)
+            if "variants" in only:
+                variants = phase_variants(os.path.join(tmp, "variants"),
+                                          main_path)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
@@ -1998,7 +2429,10 @@ def main(argv=None):
         "launches_slab_path": slab["launches"],
         "launches_replicated_path": replicated["launches"],
         "replicated_path_ms_per_launch_median": replicated["median_ms"],
-        "replicated_path_ms_per_launch_max": replicated["max_ms"]}]}))
+        "replicated_path_ms_per_launch_max": replicated["max_ms"],
+        "launches_coupled_tangent_path": variants["launches"],
+        "coupled_tangent_path_ms_per_launch_median": variants["median_ms"],
+        "coupled_tangent_path_ms_per_launch_max": variants["max_ms"]}]}))
     log(f"[16 total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,8 +18,14 @@ with like:
   tangent, the EA block build, the inner PCG);
 * true-f32 contractions: TF32 is never used (``set_precision_policy``).
 
-Nothing here is differentiated, so the entry points run under
-``torch.inference_mode()``.
+The entry points (the CLI, ``run_simulation``, the workflow runners)
+run under ``torch.inference_mode()``.  The point update is
+differentiable in forward mode with respect to the material parameters:
+``ECMechModel.model_setup`` and ``model_setup_cm`` called outside
+``inference_mode`` with kinetics parameters as dual tensors of
+``torch.autograd.forward_ad`` give their JVPs, the trust-region
+iterations detached as the reference's are (``EvptnModel.ift_tangents``
+attaches the implicit-function tangents).
 """
 
 import torch

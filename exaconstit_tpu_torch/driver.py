@@ -159,8 +159,10 @@ class MechSystem:
     and the ``IndexMap`` on any other mesh.  The operator is EA (which
     also serves FULL), PA, or B-bar with EA blocks (B-bar forces EA, as
     the reference has no PA gradient for it).  PA, B-bar and a model
-    without the component-major point solve (UMAT) are the reference's
-    point-major half (``point_major``), whose numbers the port keeps:
+    without the component-major point solve (UMAT, and an ECMech model
+    whose settings only the per-point engine covers, which runs through
+    its point-major ``model_setup``) are the reference's point-major
+    half (``point_major``), whose numbers the port keeps:
     the point solve starts cold at every setup, and the operator is
     built in f64 even where the point solve is mixed precision.
     Elsewhere ``ea_asm_f32`` builds the 24x24 EA blocks in f32 (default:
@@ -333,9 +335,17 @@ class MechSystem:
             x_warm, warm_ok = None, False
         vgrad = self._vgrad(el_x, el_v)
         self._check("velocity gradient", vgrad=vgrad)
-        out = self.model.model_setup_cm(
-            dt, vgrad, state, compute_tangent=compute_tangent, nsub=nsub,
-            x_warm=x_warm, warm_ok=warm_ok, with_solution=True)
+        if getattr(self.model, "supports_cm", True):
+            out = self.model.model_setup_cm(
+                dt, vgrad, state, compute_tangent=compute_tangent,
+                nsub=nsub, x_warm=x_warm, warm_ok=warm_ok,
+                with_solution=True)
+        else:  # the per-point engine, point-major as the reference's
+            stress, state_end, c6 = self.model.model_setup(
+                dt, vgrad.permute(2, 0, 1), state.T,
+                compute_tangent=compute_tangent, nsub=nsub)
+            out = (stress.T, state_end.T,
+                   None if c6 is None else c6.permute(1, 2, 0), None)
         self._check("point solve", stress=out[0], state=out[1],
                     tangent=out[2])
         return el_x, out
@@ -665,10 +675,17 @@ def _euler_to_quat(euler):
 class Simulation:
     """The time loop on one device or, with ``shards``, on the slab
     domain decomposition or the replicated-node element sharding (see
-    ``_make_system``)."""
+    ``_make_system``).
+
+    ``model``, when given, runs instead of the material the options
+    build (it must read the same properties and state layout): for
+    example the options' ECMech model with a knob of the point update
+    set, ``dataclasses.replace(m, evptn=dataclasses.replace(m.evptn,
+    hardness_mode="coupled"))`` of ``models.ecmech.build_model(opt,
+    props)``."""
 
     def __init__(self, opt: ExaOptions, workdir: str | None = None,
-                 device="cuda", shards: int | None = None):
+                 device="cuda", shards: int | None = None, model=None):
         device = resolve_device(device)
         self.opt = opt
         self.workdir = workdir or os.getcwd()
@@ -693,6 +710,9 @@ class Simulation:
             # the state variables (spliced in below)
             self._ori_stride = {OriType.QUAT: 4, OriType.EULER: 3}.get(
                 opt.ori_type, opt.grain_custom_stride) if opt.cp else 0
+        if model is not None:
+            self.model = model
+        elif opt.mech_type == MechType.UMAT:
             self.model = UmatModel(
                 lib=UmatLibrary(opt.abspath(opt.umat_library)), props=props,
                 num_user_state=opt.numStateVars + self._ori_stride,

@@ -12,7 +12,11 @@ dict of numpy arrays and scalars that ``ecmech_from_reference`` reads:
 * ``eos.<field>`` for every ``EosConst`` field;
 * ``solver_tol``, ``fast_tol``, ``refine_iters``, ``solver_max_iter``,
   ``substep_cap``, ``max_substeps``, ``h_gd_blend``,
-  ``mixed_precision``, ``temp_k``.
+  ``mixed_precision``, ``temp_k``, and the scheme's settings
+  ``engine``, ``hardness_mode``, ``stagger_iters``, ``h_per_substep``,
+  ``flow_theta``, ``h_gd_source``, ``rot_frame``, ``h_order``,
+  ``tangent_mode`` and ``ift_tangents`` (False for a reference model,
+  which reads it from the environment at run time).
 
 A UMAT model flattens to ``umat.library`` (the shared library's path),
 ``umat.props``, ``umat.num_user_state`` and ``temp_k``, which
@@ -34,8 +38,13 @@ from . import kinetics
 from .slip_geom import SlipGeom
 from .umat import UmatLibrary, UmatModel
 
-_INT_FIELDS = ("refine_iters", "solver_max_iter", "max_substeps")
-_FLOAT_FIELDS = ("solver_tol", "fast_tol", "substep_cap", "h_gd_blend")
+_INT_FIELDS = ("refine_iters", "solver_max_iter", "max_substeps",
+               "stagger_iters")
+_FLOAT_FIELDS = ("solver_tol", "fast_tol", "substep_cap", "h_gd_blend",
+                 "flow_theta")
+_BOOL_FIELDS = ("mixed_precision", "h_per_substep", "ift_tangents")
+_STR_FIELDS = ("engine", "hardness_mode", "h_gd_source", "rot_frame",
+               "h_order", "tangent_mode")
 
 
 def _fields(cls, prefix, arrays):
@@ -43,7 +52,8 @@ def _fields(cls, prefix, arrays):
             for f in dataclasses.fields(cls)}
 
 
-_SCALARS = _INT_FIELDS + _FLOAT_FIELDS + ("mixed_precision",)
+_SCALARS = (_INT_FIELDS + _FLOAT_FIELDS + _STR_FIELDS
+            + ("mixed_precision", "h_per_substep"))
 _KINETICS = {c.__name__: c for c in (kinetics.VocePL, kinetics.KMBalD,
                                      kinetics.SplineG)}
 
@@ -69,6 +79,7 @@ def arrays_from_model(model) -> dict:
         arrays[f"eos.{f.name}"] = getattr(ev.eos, f.name)
     for k in _SCALARS:
         arrays[k] = getattr(ev, k)
+    arrays["ift_tangents"] = bool(getattr(ev, "ift_tangents", False))
     return arrays
 
 
@@ -84,8 +95,9 @@ def ecmech_from_reference(arrays: dict) -> ECMechModel:
     eos = EosConst(**_fields(EosConst, "eos", arrays))
     extra = {k: int(arrays[k]) for k in _INT_FIELDS}
     extra.update({k: float(arrays[k]) for k in _FLOAT_FIELDS})
+    extra.update({k: bool(arrays[k]) for k in _BOOL_FIELDS})
+    extra.update({k: str(arrays[k]) for k in _STR_FIELDS})
     evptn = EvptnModel(slip=slip, elast=elast, kinetics=kin, eos=eos,
-                       mixed_precision=bool(arrays["mixed_precision"]),
                        **extra)
     return ECMechModel(evptn=evptn, temp_k=float(arrays["temp_k"]),
                        nslip=slip.nslip, n_h=kin.n_h)

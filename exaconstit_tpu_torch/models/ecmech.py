@@ -24,7 +24,7 @@ import torch
 from ..config.options import ExaOptions, SlipType, XtalType
 from ..utils import tensors as tn
 from . import elasticity, kinetics, slip_geom
-from . import evptn_cm
+from . import evptn, evptn_cm
 from .eos import EosConst
 from .evptn import EvptnModel
 
@@ -106,21 +106,69 @@ class ECMechModel:
         n = math.floor(dt * rate_ref / cap)
         return int(min(max(n, 1), self.evptn.max_substeps))
 
-    # the reference runs these models on its component-major path
-    point_major = False
+    @property
+    def supports_cm(self):
+        """True when ``model_setup_cm`` covers this configuration (the
+        component-major engine's settings)."""
+        return self.evptn.supports_cm
+
+    @property
+    def point_major(self):
+        """The driver takes the reference's point-major path (cold point
+        solves, the f64 operator, no GMG) for what the component-major
+        engine does not cover."""
+        return not self.supports_cm
 
     def model_setup(self, dt, vgrad, state_beg, compute_tangent=True,
-                    nsub=None):
-        """The reference's point-major contract over ``model_setup_cm``:
-        vgrad (N, 3, 3), state_beg (N, num_state) -> (stress (N, 6),
-        state_end (N, num_state), tangent (N, 6, 6) or None).  The point
-        solve starts cold, as the reference's point-major path does."""
-        stress, state_end, c6 = self.model_setup_cm(
-            dt, vgrad.permute(1, 2, 0).contiguous(),
-            state_beg.T.contiguous(), compute_tangent=compute_tangent,
-            nsub=nsub)
-        return (stress.T, state_end.T,
-                None if c6 is None else c6.permute(2, 0, 1))
+                    nsub=None, x_warm=None, warm_ok=None,
+                    with_solution=False):
+        """Constitutive update, point-major, through
+        ``evptn.batched_update`` (either engine): vgrad (N, 3, 3),
+        state_beg (N, num_state) -> (stress (N, 6), state_end (N,
+        num_state), tangent (N, 6, 6) or None[, x (N, 8)]).
+        ``with_solution`` needs the component-major engine (the per-point
+        engine returns no solution vector), as in the reference."""
+        d = 0.5 * (vgrad + vgrad.transpose(1, 2))
+        tr_d = d[:, 0, 0] + d[:, 1, 1] + d[:, 2, 2]
+        d_vecd = torch.einsum("kij,nij->nk", tn.const(tn.BASIS_DEV, d), d)
+        w_vec = torch.stack([0.5 * (vgrad[:, 2, 1] - vgrad[:, 1, 2]),
+                             0.5 * (vgrad[:, 0, 2] - vgrad[:, 2, 0]),
+                             0.5 * (vgrad[:, 1, 0] - vgrad[:, 0, 1])],
+                            dim=1)
+        v0 = state_beg[:, self.ind_vols]
+        v1 = v0 * torch.exp(tr_d * dt)
+        e_int = state_beg[:, self.ind_int_eng]
+        e_n = state_beg[:, self.IND_ESTRAIN:self.IND_ESTRAIN + 5]
+        q_n = state_beg[:, self.IND_QUATS:self.IND_QUATS + 4]
+        h_n = state_beg[:, self.IND_HARD:self.IND_HARD + self.n_h]
+        if nsub is None:
+            nsub = self.substep_counts(dt)
+        out = evptn.batched_update(
+            self.evptn, dt, d_vecd, w_vec, v0, v1, e_int, e_n, q_n, h_n,
+            self.temp_k, compute_tangent=compute_tangent, nsub=nsub,
+            x_warm=x_warm, warm_ok=warm_ok)
+        stress = evptn_cm.vecd_to_svec_cm(out["s_vecd_sm"].T).T \
+            - out["pressure"][:, None] * tn.const([1.0, 1, 1, 0, 0, 0], v1)
+        deff = tn.vecd_deff(d_vecd)
+        plw_inc = torch.where(deff > IDP_TINY_SQRT,
+                              out["flow_str"] * deff * dt, 0.0)
+        state_end = torch.cat([
+            out["shrate_eff"][:, None],
+            (state_beg[:, self.IND_SHREFF] + out["shrate_eff"] * dt)[:, None],
+            (state_beg[:, self.IND_PLWORK] + plw_inc)[:, None],
+            out["iters"].to(stress.dtype)[:, None],
+            out["e_end"], out["q_end"], out["h_end"], out["gdots"],
+            v1[:, None], out["e_int"][:, None],
+        ], dim=1)
+        tangent = out.get("tangent")
+        if with_solution:
+            if "x_sol" not in out:
+                raise ValueError(
+                    "with_solution requires the component-major engine "
+                    "(the per-point engine does not expose the solution "
+                    "vector)")
+            return stress, state_end, tangent, out["x_sol"]
+        return stress, state_end, tangent
 
     def model_setup_cm(self, dt, vgrad_cm, state_beg_cm,
                        compute_tangent=True, nsub=None, x_warm=None,
@@ -129,7 +177,13 @@ class ECMechModel:
 
         vgrad_cm (3, 3, N) velocity gradient L_ij = dv_i/dx_j;
         state_beg_cm (num_state, N).  Returns (stress (6, N), state_end
-        (num_state, N), tangent (6, 6, N) or None[, x (8, N)])."""
+        (num_state, N), tangent (6, 6, N) or None[, x (8, N)]).  Needs the
+        component-major engine's settings (``supports_cm``)."""
+        if not self.supports_cm:
+            raise NotImplementedError(
+                "model_setup_cm implements the component-major engine's "
+                "staggered scheme only; these settings run through "
+                "model_setup")
         d = 0.5 * (vgrad_cm + vgrad_cm.transpose(0, 1))
         tr_d = d[0, 0] + d[1, 1] + d[2, 2]
         d_vecd = evptn_cm.mat_to_vecd_cm(d)  # (5, N)
@@ -155,8 +209,8 @@ class ECMechModel:
             ev, dt, d_vecd, w_vec, e_n, q_n, h_n, self.temp_k, nsub,
             x_warm=x_warm, warm_ok=warm_ok)
         out = evptn_cm.outputs_from_solution_cm(
-            ev, dt, d_vecd, w_vec, v0, v1, e_int, e_n, q_n, self.temp_k, x,
-            h_end, h_used, iters, ok, compute_tangent)
+            ev, dt, d_vecd, w_vec, v0, v1, e_int, e_n, q_n, h_n, self.temp_k,
+            x, h_end, h_used, iters, ok, compute_tangent)
 
         s_dev = evptn_cm.vecd_to_svec_cm(out["s_vecd_sm"])
         stress = s_dev - out["pressure"][None] * tn.const(

@@ -1,15 +1,17 @@
 """Component-major batched crystal-plasticity point solve.
 
-Port of the production path of ``exaconstit_tpu.models.evptn_cm``.  The
-point batch is the LAST axis everywhere (``e (5, N)``, ``J (8, 8, N)``,
-``taus (S, N)``), as in the reference, so the two packages compare like
-with like.  Constant-matrix contractions are single matmuls against the
-batch; per-point small products are broadcast multiply-and-sum.
+Port of ``exaconstit_tpu.models.evptn_cm``, the component-major engine
+of the staggered scheme (``stagger_iters``, ``h_per_substep``, the
+lagged and the coupled tangent).  The point batch is the LAST axis
+everywhere (``e (5, N)``, ``J (8, 8, N)``, ``taus (S, N)``), as in the
+reference, so the two packages compare like with like.  Constant-matrix
+contractions are single matmuls against the batch; per-point small
+products are broadcast multiply-and-sum.
 
 The mixed-precision stage (f32 trust region to ``fast_tol``) goes
 through ``solvers.dogleg_cuda.dogleg_stage``: the CUDA kernel for tensors
 on the card, the plain version below (``dogleg_cm``) on the CPU.  The
-f64 polish, the lagged tangent and the outputs are plain torch.
+f64 polish, the tangents and the outputs are plain torch.
 """
 
 from __future__ import annotations
@@ -19,7 +21,6 @@ import torch
 
 from ..utils import tensors as tn
 from ..utils.tensors import const
-from .evptn import IDENT_VOL, M_SVEC_FROM_VECD, M_VECD_FROM_SVEC_ENG
 
 
 def _safe_sqrt(s):
@@ -57,6 +58,21 @@ def expmap_to_quat_cm(xi):
     q0 = torch.where(big, torch.cos(0.5 * ang), 1.0 - ang2 / 8.0)
     sinc = torch.where(big, torch.sin(0.5 * ang) / ang, 0.5 - ang2 / 48.0)
     return torch.stack([q0, xi[0] * sinc, xi[1] * sinc, xi[2] * sinc])
+
+
+def quat_conjugate_cm(q):
+    return q * const([1.0, -1.0, -1.0, -1.0], q)[:, None]
+
+
+def quat_to_expmap_cm(dq):
+    """Rotation log map (4, N) -> (3, N), NaN-safe at the identity."""
+    qv2 = dq[1] ** 2 + dq[2] ** 2 + dq[3] ** 2
+    big = qv2 > 1e-28
+    qvn = torch.sqrt(torch.where(big, qv2, 1.0))
+    ang = 2.0 * torch.atan2(qvn, dq[0])
+    fac = torch.where(big, ang / qvn,
+                      2.0 / torch.clamp(dq[0], min=_tiny(dq.dtype)))
+    return dq[1:] * fac[None]
 
 
 def quat_to_rmat_cm(q):
@@ -300,7 +316,8 @@ def dogleg_cm(resjac_fn, x0, tol, max_iter, active0=None):
         p_norm = norm0(p)
         grow = (rho > 0.8) & (p_norm > 0.9 * delta)
         shrink = ~finite | (rho < 0.25)
-        factor = torch.where(~finite | (rho < 0.0), 0.1, 0.25)
+        factor = torch.full_like(rho, 0.25).masked_fill(
+            ~finite | (rho < 0.0), 0.1)
         delta_new = torch.where(grow, torch.clamp(2.0 * delta, max=1e4),
                                 delta)
         delta_new = torch.where(
@@ -341,8 +358,21 @@ def solve_staggered_cm_core(model, dt, d_cm, w_cm, e0, q0, h0, temp_k, nsub,
 
     ``nsub`` (N,) int32 substep counts; ``x_warm`` (8, N) an optional
     warm-start candidate, compared per point against the default start
-    when ``warm_ok`` (the smaller residual wins).  Returns (x (8, N),
-    h_end (nh, N), h_used (nh, N), iters (N,), conv (N,))."""
+    when ``warm_ok`` (the smaller residual wins).  Per substep
+    ``model.stagger_iters`` passes each solve (e, xi) against the
+    current hardness and, with ``h_per_substep``, update the hardness
+    from the substep's begin value; without it every substep sees the
+    step-begin hardness and one full-dt update from the final slip rates
+    follows.  Returns (x (8, N), h_end (nh, N), h_used (nh, N), iters
+    (N,), conv (N,)).
+
+    Under ``torch.autograd.forward_ad`` the trust-region iterations are
+    detached (differentiating through them is unstable: the radius
+    updates inject tangent terms the loop amplifies); the f64 polish
+    after the mixed stage stays differentiable, and so carries the
+    implicit-function tangent of r(x; p) = 0.  The pure-f64 solve gets
+    that tangent from a straight-through Newton correction (zero in
+    value) when ``model.ift_tangents``."""
     from ..solvers.dogleg_cuda import dogleg_stage
 
     N = d_cm.shape[1]
@@ -357,6 +387,7 @@ def solve_staggered_cm_core(model, dt, d_cm, w_cm, e0, q0, h0, temp_k, nsub,
     kin = model.kinetics
     PC = np.asarray(model.slip.P) @ np.asarray(model.elast.C_dev)
     blend = float(model.h_gd_blend)
+    ift = bool(model.ift_tangents)
 
     def solve_exi(x0, h, e_c, q_c, active):
         if use_mixed:
@@ -379,6 +410,11 @@ def solve_staggered_cm_core(model, dt, d_cm, w_cm, e0, q0, h0, temp_k, nsub,
 
         x, ok, iters, _, _ = dogleg_cm(rj, x0, model.solver_tol,
                                        model.solver_max_iter, active0=active)
+        x = x.detach()
+        if ift:
+            r, J = rj(x)
+            dx = solve_dense_cm_eq(J, r)
+            x = x - (dx - dx.detach())
         return x, ok, iters
 
     def one_substep(e_c, q_c, h_c, active):
@@ -397,47 +433,53 @@ def solve_staggered_cm_core(model, dt, d_cm, w_cm, e0, q0, h0, temp_k, nsub,
                                                              dim=0)
             x0 = torch.where(better[None], xw, x0)  # NaN -> default start
 
-        x, ok, iters = solve_exi(x0, h_c, e_c, q_c, active)
-        # hardness from the slip rates at the solution, blended toward
-        # the begin-of-substep rates
-        gd = kin.gdots(const_mm_cm(PC, x[:5]), h_c, temp_k)
-        if blend != 1.0:
-            gd_b = kin.gdots(const_mm_cm(PC, e_c), h_c, temp_k)
-            gd = blend * gd + (1.0 - blend) * gd_b
-        h_new = kin.update_h(h_c, gd, dt_sub, temp_k)
+        h = h_used = h_c
+        its = torch.zeros(N, dtype=torch.int32, device=d_cm.device)
+        conv = torch.ones(N, dtype=torch.bool, device=d_cm.device)
+        for _ in range(model.stagger_iters):
+            h_used = h
+            x, ok, iters = solve_exi(x0, h, e_c, q_c, active)
+            its, conv = its + iters, conv & ok
+            if model.h_per_substep:
+                # hardness from the slip rates at the solution, blended
+                # toward the begin-of-substep rates
+                gd = kin.gdots(const_mm_cm(PC, x[:5]), h, temp_k)
+                if blend != 1.0:
+                    gd_b = kin.gdots(const_mm_cm(PC, e_c), h, temp_k)
+                    gd = blend * gd + (1.0 - blend) * gd_b
+                h = kin.update_h(h_c, gd, dt_sub, temp_k, ift_tangents=ift)
         q_new = quat_multiply_cm(q_c, expmap_to_quat_cm(x[5:]))
         q_new = q_new / torch.sqrt(torch.sum(q_new * q_new, dim=0))[None]
-        return x[:5], q_new, h_new, iters, ok
+        return x[:5], q_new, h, h_used, its, conv
 
     e, q, h, h_used = e0, q0, h0, h0
     its = torch.zeros(N, dtype=torch.int32, device=d_cm.device)
     conv = torch.ones(N, dtype=torch.bool, device=d_cm.device)
     for i in range(min(int(nsub.max()), max_sub)):
         active = i < nsub
-        e2, q2, h2, it2, c2 = one_substep(e, q, h, active)
+        e2, q2, h2, hu2, it2, c2 = one_substep(e, q, h, active)
         am = active[None]
-        h_used = torch.where(am, h, h_used)
+        h_used = torch.where(am, hu2, h_used)
         e = torch.where(am, e2, e)
         q = torch.where(am, q2, q)
         h = torch.where(am, h2, h)
         its = its + torch.where(active, it2, 0)
         conv = torch.where(active, conv & c2, conv)
 
-    # total rotation increment back in expmap form (log map, NaN-safe at
-    # the identity)
-    qc = q0 * const([1.0, -1.0, -1.0, -1.0], q0)[:, None]
-    dq = quat_multiply_cm(qc, q)
-    qv2 = dq[1] ** 2 + dq[2] ** 2 + dq[3] ** 2
-    big = qv2 > 1e-28
-    qvn = torch.sqrt(torch.where(big, qv2, 1.0))
-    ang = 2.0 * torch.atan2(qvn, dq[0])
-    fac = torch.where(big, ang / qvn,
-                      2.0 / torch.clamp(dq[0], min=_tiny(dtype)))
-    return torch.cat([e, dq[1:] * fac[None]], dim=0), h, h_used, its, conv
+    if not model.h_per_substep:
+        # one full-dt hardness update from the final slip rates (every
+        # substep ran against the step-begin hardness)
+        gd = kin.gdots(const_mm_cm(PC, e), h0, temp_k)
+        h = kin.update_h(h0, gd, dt, temp_k, ift_tangents=ift)
+        h_used = h0
+
+    # total rotation increment back in expmap form
+    xi = quat_to_expmap_cm(quat_multiply_cm(quat_conjugate_cm(q0), q))
+    return torch.cat([e, xi], dim=0), h, h_used, its, conv
 
 
 # ---------------------------------------------------------------------------
-# lagged consistent tangent
+# consistent tangent
 # ---------------------------------------------------------------------------
 
 
@@ -449,38 +491,83 @@ def _vecd_rot5_cm(R):
     return torch.einsum("pil,kiln->pkn", B, RBRT)
 
 
-def tangent_cm_core(model, dt, d_cm, w_cm, e0, q0, x_cm, h_used_cm, v1,
-                    temp_k):
+def _h_blocks_cm(model, dt, x, h, h0, e0, temp_k):
+    """The hardness column and row of the coupled (e, xi, h) system at
+    (x, h), nh = 1: (J_xh (8, 1, N), J_h (1, 9, N)).  The slip rates'
+    h partial and the hardness residual's partials in shrate = sum |gd|
+    and h are the kinetics' closed forms (the reference takes them by
+    jvp); the h row's e block chains through the slip rates' tau slope,
+    and it has no xi block.  With ``flow_theta`` != 1 (per-point engine)
+    the flow's begin-state rates at e0 add to the h column."""
+    kin = model.kinetics
+    P = np.asarray(model.slip.P)
+    PC = P @ np.asarray(model.elast.C_dev)
+    taus = const_mm_cm(PC, x[:5])
+    gd, slope = kin.gdots_slope(taus, h, temp_k)
+    dgd_dh = kin.gdots_dh(taus, h, temp_k)  # (S, N)
+    th = model.flow_theta
+    dflow = dgd_dh if th == 1.0 else (
+        th * dgd_dh + (1.0 - th) * kin.gdots_dh(const_mm_cm(PC, e0), h,
+                                                temp_k))
+    J_xh = dt * torch.cat([const_mm_cm(P.T, dflow),
+                           const_mm_cm(np.asarray(model.slip.Q).T, dflow)],
+                          dim=0)[:, None]
+    drh_dh, drh_ds = kin.h_residual_partials(h, h0, gd, dt, temp_k)
+    sgn = torch.sign(gd)
+    J_he = drh_ds * const_mm_cm(PC.T, sgn * slope)  # (5, N)
+    J_hh = drh_dh + drh_ds * torch.sum(sgn * dgd_dh, dim=0, keepdim=True)
+    J_h = torch.cat([J_he, torch.zeros_like(x[5:]), J_hh], dim=0)[None]
+    return J_xh, J_h
+
+
+def tangent_cm_core(model, dt, d_cm, w_cm, e0, q0, h0_cm, x_cm, h_sol_cm,
+                    v1, temp_k, h_used_cm=None):
     """6x6 consistent tangent d(sigma_svec)/d(eps_svec_eng), (6, 6, N).
 
-    Lagged mode: the implicit-function theorem on the (e, xi) system at
-    the frozen hardness ``h_used`` the final substep solved against,
-    the exact derivative of the production staggered map.  Under
-    ``model.mixed_precision`` it is computed in f32 (row-equilibrated
-    solve plus one defect-correction pass) and cast back."""
+    ``model.tangent_mode``:
+
+    * ``"lagged"``: the implicit-function theorem on the (e, xi) system
+      at the frozen hardness ``h_used`` the final pass solved against,
+      the exact derivative of the production staggered map;
+    * ``"coupled"``: the implicit-function theorem on the coupled
+      (e, xi, h) system at (x, h_sol), the exact derivative of the fully
+      implicit map (hardness_mode="coupled").
+
+    Under ``model.mixed_precision`` it is computed in f32 (row-
+    equilibrated solve plus one defect-correction pass) and cast back."""
+    from .evptn import IDENT_VOL, M_SVEC_FROM_VECD, M_VECD_FROM_SVEC_ENG
+
     out_dtype = x_cm.dtype
     if model.mixed_precision and out_dtype == torch.float64:
         f32 = torch.float32
         return tangent_cm_core(
             model, dt, d_cm.to(f32), w_cm.to(f32), e0.to(f32), q0.to(f32),
-            x_cm.to(f32), h_used_cm.to(f32), v1.to(f32),
-            temp_k).to(out_dtype)
+            h0_cm.to(f32), x_cm.to(f32), h_sol_cm.to(f32), v1.to(f32),
+            temp_k, None if h_used_cm is None else h_used_cm.to(f32)
+        ).to(out_dtype)
 
+    lagged = model.tangent_mode == "lagged" and h_used_cm is not None
     N = x_cm.shape[1]
     C = np.asarray(model.elast.C_dev)
     Dsm = vecd_to_mat_cm(d_cm)
-    _, Jz = residual_and_jac_cm(model, x_cm, h_used_cm, dt, Dsm, w_cm, e0,
-                                q0, temp_k)  # (8, 8, N)
+    h = h_used_cm if lagged else h_sol_cm
+    _, Jz = residual_and_jac_cm(model, x_cm, h, dt, Dsm, w_cm, e0, q0,
+                                temp_k)  # (8, 8, N)
+    nh_z = 0
+    if not lagged:
+        J_xh, J_h = _h_blocks_cm(model, dt, x_cm, h, h0_cm, e0, temp_k)
+        Jz = torch.cat([torch.cat([Jz, J_xh], dim=1), J_h], dim=0)
+        nh_z = 1
     e_end, xi = x_cm[:5], x_cm[5:]
 
     # right-hand side: only r_e depends on d, through d_lat = Q5(R^T) d
     R = quat_to_rmat_cm(quat_multiply_cm(q0, expmap_to_quat_cm(xi)))
     RT = R.transpose(0, 1)
     dR_dd = torch.cat([-dt * _vecd_rot5_cm(RT),
-                       x_cm.new_zeros(3, 5, N)], dim=0)
+                       x_cm.new_zeros(3 + nh_z, 5, N)], dim=0)
     dz = solve_dense_cm_eq(Jz, dR_dd)
     dz = dz + solve_dense_cm_eq(Jz, dR_dd - mm_cm(Jz, dz))
-    dz_dd = -dz  # (8, 5, N)
+    dz_dd = -dz  # (8 + nh_z, 5, N)
 
     # stress sensitivity: sigma_sm_vecd = Q5(R) (C e) / v1
     s_lat_mat = vecd_to_mat_cm(const_mm_cm(C, e_end))
@@ -490,7 +577,8 @@ def tangent_cm_core(model, dt, d_cm, w_cm, e0, q0, x_cm, h_used_cm, v1,
             const_mm_cm(_EPS[:, k, :], s_lat_mat)
             - const_mm_r_cm(s_lat_mat, _EPS[:, k, :]), RT)))
         for k in range(3)], dim=1) / v1[None, None, :]
-    ds_dd = mm_cm(torch.cat([ds_de, ds_dxi], dim=1), dz_dd)  # (5, 5, N)
+    ds_dz = torch.cat([ds_de, ds_dxi, x_cm.new_zeros(5, nh_z, N)], dim=1)
+    ds_dd = mm_cm(ds_dz, dz_dd)  # (5, 5, N)
     c_dev = const_mm_cm(M_SVEC_FROM_VECD,
                         const_mm_r_cm(ds_dd / dt, M_VECD_FROM_SVEC_ENG))
     m6 = const(IDENT_VOL, x_cm)
@@ -512,7 +600,7 @@ def vecd_to_svec_cm(t):
 
 
 def outputs_from_solution_cm(model, dt, d_cm, w_cm, v0, v1, e_int_n, e0,
-                             q0, temp_k, x, h_end, h_used, iters, ok,
+                             q0, h0, temp_k, x, h_end, h_used, iters, ok,
                              compute_tangent):
     """Stress/state/tangent outputs, component-major (c, N) tensors."""
     e_end = x[:5]
@@ -536,6 +624,7 @@ def outputs_from_solution_cm(model, dt, d_cm, w_cm, v0, v1, e_int_n, e0,
                shrate_eff=shrate_eff, flow_str=flow_str, iters=iters,
                converged=ok)
     if compute_tangent:
-        out["tangent"] = tangent_cm_core(model, dt, d_cm, w_cm, e0, q0, x,
-                                         h_used, v1, temp_k)
+        out["tangent"] = tangent_cm_core(model, dt, d_cm, w_cm, e0, q0, h0,
+                                         x, h_end, v1, temp_k,
+                                         h_used_cm=h_used)
     return out

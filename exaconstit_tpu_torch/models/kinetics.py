@@ -3,9 +3,9 @@
 Port of ``exaconstit_tpu.models.kinetics``:
 
 * ``VocePL``: power-law slip with Voce hardening (ExaCMech's Kin_FCC_A,
-  and Kin_FCC_AH with a nonlinear Voce exponent), in the sat_ratio
-  evolution form with a backward-Euler update, which is the one the
-  reference's production configuration uses;
+  and Kin_FCC_AH with a nonlinear Voce exponent), in either evolution
+  form and either update scheme of the reference (production: the
+  sat_ratio form with a backward-Euler update);
 * ``KMBalD``: Kocks-Mecking dislocation density with balanced thermally
   activated (MTS-like) slip and phonon drag, for FCC, BCC
   (``g_athermal``) and per-slip HCP parameter sets;
@@ -17,6 +17,13 @@ The reference's functions take point-major ``(N, S)`` arrays; these take
 the component-major arrays of the point solve directly: resolved shears
 ``taus (S, N)``, hardness ``h (nh, N)``, slip rates ``(S, N)``.  Every
 rate function takes the temperature ``temp_k`` last; Voce ignores it.
+
+A scalar parameter may be a 0-d tensor instead of a float (a dual tensor
+of ``torch.autograd.forward_ad``, for parameter sensitivities: for
+example ``dataclasses.replace(kin, h0=dual)``); the values are those of
+the float.  ``gdots_dh`` and ``h_residual_partials`` give the hardness
+partials of the coupled tangent in closed form (the reference takes them
+by ``jax.jvp``; nested forward-mode AD is not available in torch).
 """
 
 from __future__ import annotations
@@ -30,6 +37,36 @@ import torch
 from ..utils.tensors import const
 
 _TINY = 1e-280
+
+
+def _log(v):
+    """log of a parameter: math.log of a float, torch.log of a tensor."""
+    return torch.log(v) if torch.is_tensor(v) else math.log(v)
+
+
+def _table(v, like):
+    """A parameter table as a tensor of ``like``'s dtype and device: a
+    tensor keeps its tangent, anything else is a cached constant."""
+    if torch.is_tensor(v):
+        return v.to(dtype=like.dtype, device=like.device)
+    return const(np.asarray(v, dtype=float), like)
+
+
+def primal(kin):
+    """The kinetics with every tensor parameter replaced by its value (a
+    float, or a numpy array for a per-slip table), without tangents."""
+    vals = {}
+    for f in dataclasses.fields(kin):
+        v = getattr(kin, f.name)
+        if torch.is_tensor(v):
+            a = v.detach().cpu().numpy().astype(float)
+            vals[f.name] = float(a) if a.ndim == 0 else a
+    return dataclasses.replace(kin, **vals) if vals else kin
+
+
+def _mean(v):
+    return torch.mean(v) if torch.is_tensor(v) else float(np.mean(
+        np.asarray(v)))
 
 
 def max_log_gdot(dtype):
@@ -49,6 +86,13 @@ class VocePL:
     gam_s: float
     hdn_init: float
     voce_exponent: float = 1.0  # 1 -> linear Voce (Kin_FCC_A)
+    # evolution form: "sat_ratio" h0 ((gs - h) / (gs - g0))^n Gamma_dot,
+    # "one_minus" h0 (1 - h / gs)^n Gamma_dot
+    form: str = "sat_ratio"
+    # linear Voce update over the step: "backward_euler" (one implicit
+    # Euler step, ExaCMech's) or "exponential" (the exact solution of
+    # dh/dGamma = a (gs - h) with gs frozen)
+    h_scheme: str = "backward_euler"
 
     n_h = 1
 
@@ -107,34 +151,90 @@ class VocePL:
         """|tau|/g at fully developed flow at rate deff (initial guess)."""
         return torch.pow(torch.clamp(deff, min=1e-12) / self.gdot0, self.xm)
 
-    def _gsat(self, shrate):
-        if self.xms == 0.0:
-            return torch.full_like(shrate, self.gs0)
-        arg = torch.clamp(shrate, min=_TINY) / self.gam_s
-        return self.gs0 * torch.pow(arg, self.xms)
+    def gdots_dh(self, taus, h, temp_k=None):
+        """d gdots / d h (S, N): the rate is a function of |tau| / g."""
+        _, big, log_gdot, capped, _, cap = self._log_rate(taus, h)
+        mag_cap = self.gdot0 * torch.exp(capped)
+        dmag = torch.where(log_gdot < cap,
+                           mag_cap * (1.0 + torch.clamp(log_gdot - cap,
+                                                        min=0.0)), mag_cap)
+        d = -(1.0 / self.xm) / h[0:1] * dmag
+        return torch.sign(taus) * torch.where(big, d, 0.0)
 
-    def update_h(self, h_n, gdots, dt, temp_k=None):
-        """Backward-Euler hardness update from converged slip rates.
+    def _gsat(self, shrate):
+        """(gs, d gs / d shrate) of the saturation strength."""
+        if self.xms == 0.0:
+            if torch.is_tensor(self.gs0):
+                return (torch.zeros_like(shrate) + self.gs0,
+                        torch.zeros_like(shrate))
+            return torch.full_like(shrate, self.gs0), torch.zeros_like(shrate)
+        arg = torch.clamp(shrate, min=_TINY) / self.gam_s
+        gs = self.gs0 * torch.pow(arg, self.xms)
+        return gs, torch.where(shrate > _TINY,
+                               gs * self.xms / torch.clamp(shrate,
+                                                           min=_TINY), 0.0)
+
+    def _x(self, h, gs):
+        """(x, dx/dh, dx/dgs) of the evolution form."""
+        if self.form == "sat_ratio":
+            den = gs - self.g0
+            return (gs - h) / den, -1.0 / den, (h - self.g0) / (den * den)
+        return 1.0 - h / gs, -1.0 / gs, h / (gs * gs)
+
+    def _hdot(self, h, gs):
+        """(hdot, d hdot / d x) at x = self._x(h, gs)[0]."""
+        x = torch.clamp(self._x(h, gs)[0], min=0.0)
+        n = self.voce_exponent
+        if n == 1.0:
+            return self.h0 * x, self.h0 * (x > 0.0).to(x.dtype)
+        xs = torch.clamp(x, min=_TINY)
+        return (self.h0 * torch.pow(xs, n),
+                torch.where(x > _TINY, self.h0 * n * torch.pow(xs, n - 1.0),
+                            0.0))
+
+    def h_residual(self, h, h_n, gdots, dt, temp_k=None):
+        """Backward-Euler hardness residual (the coupled system's h row)."""
+        shrate = torch.sum(torch.abs(gdots), dim=0, keepdim=True)
+        return h - h_n - self._hdot(h, self._gsat(shrate)[0])[0] \
+            * shrate * dt
+
+    def h_residual_partials(self, h, h_n, gdots, dt, temp_k=None):
+        """(d rh / d h, d rh / d shrate), each (1, N), of ``h_residual``,
+        shrate = sum |gdots|."""
+        shrate = torch.sum(torch.abs(gdots), dim=0, keepdim=True)
+        gs, dgs = self._gsat(shrate)
+        hdot, dhdot_dx = self._hdot(h, gs)
+        _, dx_dh, dx_dgs = self._x(h, gs)
+        dgam = shrate * dt
+        return (1.0 - dhdot_dx * dx_dh * dgam,
+                -(hdot * dt + dhdot_dx * dx_dgs * dgs * dgam))
+
+    def update_h_explicit(self, h_n, gdots, dt, temp_k=None):
+        """Forward-Euler hardness update (the h_forward scheme)."""
+        shrate = torch.sum(torch.abs(gdots), dim=0, keepdim=True)
+        return h_n + self._hdot(h_n, self._gsat(shrate)[0])[0] * shrate * dt
+
+    def update_h(self, h_n, gdots, dt, temp_k=None, ift_tangents=False):
+        """Implicit hardness update from converged slip rates.
 
         h_n (1, N), gdots (S, N), dt scalar or (N,).  Closed form for
         the linear Voce law; 20 scalar Newton steps for the nonlinear
-        exponent."""
+        exponent.  ``ift_tangents`` is read by ``SplineG`` alone."""
         shrate = torch.sum(torch.abs(gdots), dim=0, keepdim=True)
-        gs = self._gsat(shrate)
+        gs = self._gsat(shrate)[0]
         dgam = shrate * dt
         n = self.voce_exponent
         if n == 1.0:
-            a = self.h0 / (gs - self.g0)
-            return (h_n + a * gs * dgam) / (1.0 + a * dgam)
+            a = self.h0 / (gs - self.g0 if self.form == "sat_ratio" else gs)
+            if self.h_scheme == "backward_euler":
+                return (h_n + a * gs * dgam) / (1.0 + a * dgam)
+            return gs + (h_n - gs) * torch.exp(-a * dgam)
         h = h_n
+        den = gs - self.g0 if self.form == "sat_ratio" else gs
         for _ in range(20):
-            x = (gs - h) / (gs - self.g0)
-            xpos = torch.clamp(x, min=0.0)
-            hdot = self.h0 * torch.pow(torch.clamp(xpos, min=_TINY), n)
-            r = h - h_n - hdot * dgam
-            x = torch.clamp(x, min=_TINY)
-            drdh = 1.0 + dgam * self.h0 * n * torch.pow(x, n - 1.0) / (
-                gs - self.g0)
+            r = h - h_n - self._hdot(h, gs)[0] * dgam
+            x = torch.clamp(self._x(h, gs)[0], min=_TINY)
+            drdh = 1.0 + dgam * self.h0 * n * torch.pow(x, n - 1.0) / den
             h = h - r / drdh
         return h
 
@@ -142,6 +242,9 @@ class VocePL:
 def _col(v, like):
     """A kinetics parameter ready to broadcast against (S, N): a float
     stays a float, a per-slip (S,) array becomes an (S, 1) tensor."""
+    if torch.is_tensor(v):
+        v = v.to(dtype=like.dtype, device=like.device)
+        return v if v.ndim == 0 else v.reshape(-1, 1)
     a = np.asarray(v, dtype=float)
     return float(a) if a.ndim == 0 else const(a.reshape(-1, 1), like)
 
@@ -236,6 +339,12 @@ class KMBalD:
         rho = torch.clamp(h[0:1], min=_TINY)
         return _col(self.go, h) + _col(self.s, h) * torch.sqrt(rho)
 
+    def _strength_dh(self, h):
+        """d strength / d h, shaped as ``_strength``."""
+        rho = torch.clamp(h[0:1], min=_TINY)
+        return torch.where(h[0:1] > _TINY,
+                           _col(self.s, h) * 0.5 / torch.sqrt(rho), 0.0)
+
     def strength_floor(self, h):
         """(N,) lower bound of the slip strengths (initial guess)."""
         return torch.amin(self._strength(h), dim=0)
@@ -243,14 +352,20 @@ class KMBalD:
     def operating_ratio(self, deff):
         """|tau|/strength at flow rate deff (thermal branch, p = q ~ 1
         estimate); only the initial guess of the point solve uses it."""
-        c_t = float(np.mean(np.asarray(self.c1))) * self.mu_ref / 300.0
+        c_t = _mean(self.c1) * self.mu_ref / 300.0
         x = torch.clamp(
             1.0 + torch.log(torch.clamp(deff, min=1e-12) / self.gam_wo) / c_t,
             0.05, 1.0)
         if self.g_athermal:
             # flow at |tau| ~ g + x tau_a, relative to g(h_init)
-            g0 = float(np.min(np.asarray(self.go) + np.asarray(self.s)
-                              * np.sqrt(max(self.rho_dd_init, 1e-30))))
+            if any(torch.is_tensor(v) for v in (self.go, self.s,
+                                                 self.rho_dd_init)):
+                g0 = torch.min(torch.as_tensor(self.go) + torch.as_tensor(
+                    self.s) * torch.sqrt(torch.clamp(torch.as_tensor(
+                        self.rho_dd_init), min=1e-30)))
+            else:
+                g0 = float(np.min(np.asarray(self.go) + np.asarray(self.s)
+                                  * np.sqrt(max(self.rho_dd_init, 1e-30))))
             return 1.0 + x * self.tau_a / g0
         return x
 
@@ -258,8 +373,17 @@ class KMBalD:
         return self.gdots_slope(taus, h, temp_k)[0]
 
     def gdots_slope(self, taus, h, temp_k):
-        """(gdots, d|gdots|/d|tau|) of the balanced rate gd = gw gr /
-        (gw + gr), with gw = gam_wo exp(-(c1 mu / T) (1 - x^p)^q) the
+        return self._rates(taus, h, temp_k)[:2]
+
+    def gdots_dh(self, taus, h, temp_k):
+        """d gdots / d h (S, N), through the strength (the thermal
+        window's normaliser for FCC/HCP, the athermal offset for BCC)."""
+        return self._rates(taus, h, temp_k, with_dh=True)[2]
+
+    def _rates(self, taus, h, temp_k, with_dh=False):
+        """(gdots, d|gdots|/d|tau|[, d gdots / d h]) of the balanced rate
+        gd = gw gr / (gw + gr), with gw = gam_wo exp(-(c1 mu / T)
+        (1 - x^p)^q) the
         thermally activated branch and gr = gam_ro tau_eff / wrD the drag
         branch, in log space (gw spans hundreds of decades).  The slope
         goes through the balance as d log gd = d log gw (1 - p_w) +
@@ -280,9 +404,9 @@ class KMBalD:
         act = torch.clamp(1.0 - xp, min=0.0)
         actq, dactq_dact = _safe_pow(act, self.q)
         tiny = float(torch.finfo(taus.dtype).tiny)
-        log_gw = math.log(self.gam_wo) - c_t * actq
+        log_gw = _log(self.gam_wo) - c_t * actq
         tau_eff_s = torch.clamp(tau_eff, min=tiny)
-        log_gr = math.log(self.gam_ro / self.wr_d) + torch.log(tau_eff_s)
+        log_gr = _log(self.gam_ro / self.wr_d) + torch.log(tau_eff_s)
         lse = torch.logaddexp(log_gw, log_gr)
         log_gd = log_gw + log_gr - lse
         floor = -700.0 if taus.dtype == torch.float64 else -80.0
@@ -299,7 +423,22 @@ class KMBalD:
         p_r = torch.exp(log_gr - lse)
         dlog_gd = dlgw * (1.0 - p_w) + dlgr * (1.0 - p_r)
         slope = torch.where(active, mag * dlog_gd, 0.0)
-        return torch.sign(taus) * mag, slope
+        if not with_dh:
+            return torch.sign(taus) * mag, slope
+        # d/dh through g: tau_eff moves by -dg for BCC, the normaliser by
+        # dg for FCC/HCP
+        dg = self._strength_dh(h)
+        if self.g_athermal:
+            dte = torch.where(tau_eff > 0.0, -dg, 0.0)
+            dxr = dte / norm
+        else:
+            dte = torch.zeros_like(dg)
+            dxr = -xr / norm * dg
+        dlgw_h = c_t * dactq_dact * dxp_dx * torch.where(in_window, dxr, 0.0)
+        dlgr_h = dte / tau_eff_s
+        dmag = torch.where(active, mag * (dlgw_h * (1.0 - p_w)
+                                          + dlgr_h * (1.0 - p_r)), 0.0)
+        return torch.sign(taus) * mag, slope, torch.sign(taus) * dmag
 
     def _k2(self, shrate):
         return self.k2_0 * torch.pow(
@@ -328,9 +467,26 @@ class KMBalD:
         recov, _ = self._recov(rho, self._k2(shrate))
         return h - h_n - (prod - recov) * (shrate * dt)
 
-    def update_h(self, h_n, gdots, dt, temp_k=None):
+    def h_residual_partials(self, h, h_n, gdots, dt, temp_k=None):
+        """(d rh / d h, d rh / d shrate), each (1, N), of ``h_residual``."""
+        shrate = torch.sum(torch.abs(gdots), dim=0, keepdim=True)
+        rho = torch.clamp(h, min=_TINY)
+        k2 = self._k2(shrate)
+        prod, dprod = self._prod(rho)
+        recov, drecov = self._recov(rho, k2)
+        dgam = shrate * dt
+        inside = shrate > self._SHRATE_FLOOR
+        dk2 = torch.where(inside, -self.ninv * k2
+                          / torch.clamp(shrate, min=self._SHRATE_FLOOR), 0.0)
+        drh_dh = 1.0 - torch.where(h > _TINY, dprod - drecov, 0.0) * dgam
+        rb = torch.pow(rho, self.recov_exponent)
+        drh_ds = -(prod - recov) * dt + rb * dk2 * dgam
+        return drh_dh, drh_ds
+
+    def update_h(self, h_n, gdots, dt, temp_k=None, ift_tangents=False):
         """Implicit density update: 20 Newton steps on the backward-Euler
-        residual, k2 = k2_0 (gam_ro_dd / Gamma_dot)^ninv."""
+        residual, k2 = k2_0 (gam_ro_dd / Gamma_dot)^ninv (differentiated
+        through, as the reference does)."""
         shrate = torch.sum(torch.abs(gdots), dim=0, keepdim=True)
         dgam = shrate * dt
         k2 = self._k2(shrate)
@@ -362,10 +518,13 @@ class SplineG(KMBalD):
     def _strength(self, h):
         return h[0:1]
 
+    def _strength_dh(self, h):
+        return torch.ones_like(h[0:1])
+
     def _f(self, g):
         """(f, df/dg) of the log-piecewise-linear hardening map."""
-        kn = const(np.asarray(self.g_knots), g)
-        lf = const(np.asarray(self.log_f), g)
+        kn = _table(self.g_knots, g)
+        lf = _table(self.log_f, g)
         i = torch.clamp(torch.searchsorted(kn, g.contiguous()) - 1, 0,
                         len(self.g_knots) - 2)
         x0, x1 = kn[i], kn[i + 1]
@@ -381,11 +540,38 @@ class SplineG(KMBalD):
         f, _ = self._f(h[0:1])
         return h - h_n - f * shrate * dt
 
-    def update_h(self, h_n, gdots, dt, temp_k=None):
-        """30 Newton steps on g - h_n - f(g) dGamma = 0."""
+    def h_residual_partials(self, h, h_n, gdots, dt, temp_k=None):
+        shrate = torch.sum(torch.abs(gdots), dim=0, keepdim=True)
+        f, df = self._f(h[0:1])
+        return 1.0 - df * shrate * dt, -f * dt
+
+    def update_h_explicit(self, h_n, gdots, dt, temp_k=None):
+        """Forward-Euler update of the strength (the h_forward scheme)."""
+        shrate = torch.sum(torch.abs(gdots), dim=0, keepdim=True)
+        f, _ = self._f(h_n)
+        return h_n + f * shrate * dt
+
+    def update_h(self, h_n, gdots, dt, temp_k=None, ift_tangents=False):
+        """30 Newton steps on g - h_n - f(g) dGamma = 0.
+
+        Forward-mode tangents through the iteration are cut (its
+        mid-iteration denominator crossings give inf/NaN tangents where
+        the value is fine), as the reference's ``stop_gradient`` does.
+        With ``ift_tangents`` a straight-through Newton correction (zero
+        in value, the clamped denominator of the reference) carries the
+        implicit-function-theorem tangent of r(g; h_n, dGamma) = 0."""
         dgam = torch.sum(torch.abs(gdots), dim=0, keepdim=True) * dt
         g = h_n
         for _ in range(30):
             f, df = self._f(g)
             g = g - (g - h_n - f * dgam) / (1.0 - df * dgam)
-        return g
+        g = g.detach()
+        if not ift_tangents:
+            return g
+        f, df = self._f(g)
+        den = 1.0 - df * dgam
+        den = torch.where(torch.abs(den) > 1e-3, den,
+                          torch.where(den >= 0.0, 1.0, -1.0).to(den.dtype)
+                          * 1e-3)
+        corr = (g - h_n - f * dgam) / den
+        return g - (corr - corr.detach())

@@ -10,6 +10,13 @@ For tensors on the CPU it runs ``dogleg_stage_reference``, plain batched
 torch ops (``evptn_cm.dogleg_cm`` with the Voce residual and Jacobian),
 which the CPU tests hold against the JAX package and ``chip_smoke.py``
 holds the kernel against.
+
+Both are detached from automatic differentiation, as the reference's
+``stop_gradient`` detaches its stage: they run inside
+``DetachedStage``, an ``autograd.Function`` whose forward sees the
+primal inputs and a model whose kinetics parameters are plain floats,
+and whose outputs carry no tangent and no gradient.  The value path is
+the same with and without dual inputs.
 """
 
 from __future__ import annotations
@@ -22,11 +29,13 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from ..models import evptn_cm as cm
-from ..models.kinetics import VocePL
+from ..models.kinetics import VocePL, primal
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 SOURCE = PKG_DIR / "csrc" / "dogleg_voce.cu"
@@ -192,14 +201,46 @@ def kernel_params(model, tol, max_iter) -> np.ndarray:
     buf = np.zeros(_PARAM_FLOATS + 4, dtype=np.float32)
     buf[:_PARAM_FLOATS] = np.concatenate(
         [PC.ravel(), P.T.ravel(), Q.T.ravel()])
-    buf[_PARAM_FLOATS:_PARAM_FLOATS + 3] = [1.0 / kin.xm, kin.gdot0, tol]
+    buf[_PARAM_FLOATS:_PARAM_FLOATS + 3] = [1.0 / float(kin.xm),
+                                            float(kin.gdot0), tol]
     buf[_PARAM_FLOATS + 3:].view(np.int32)[0] = int(max_iter)
     return buf
 
 
-def dogleg_stage_reference(model, x0, h, dts, d_vecd, w_sm, e_n, q_n,
-                           active, tol, max_iter):
-    """Plain-torch version of the stage (same contract as dogleg_stage)."""
+class DetachedStage(torch.autograd.Function):
+    """``solve(*inputs)`` with its outputs cut from automatic
+    differentiation: the forward runs on the primal inputs, and the
+    outputs have zero tangents (forward mode) and no gradient."""
+
+    @staticmethod
+    def forward(ctx, solve, *inputs):
+        outs = solve(*inputs)
+        ctx.n_outputs = len(outs)
+        ctx.mark_non_differentiable(*outs)
+        return outs
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        return (None,) * ctx.n_outputs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None,) * len(ctx.needs_input_grad)
+
+
+def _detached(solve, model, x0, h, dts, d_vecd, w_sm, e_n, q_n, active,
+              tol, max_iter):
+    """``solve`` (the kernel's launch or the plain version) on detached
+    inputs with a primal model; returns (x, converged, iters, None, J)."""
+    model = dataclasses.replace(model, kinetics=primal(model.kinetics))
+    x, ok, iters, J = DetachedStage.apply(
+        lambda *a: solve(model, *a, tol, max_iter), x0, h, dts, d_vecd,
+        w_sm, e_n, q_n, active)
+    return x, ok, iters, None, J
+
+
+def _plain_stage(model, x0, h, dts, d_vecd, w_sm, e_n, q_n, active, tol,
+                 max_iter):
     Dsm = cm.vecd_to_mat_cm(d_vecd)
 
     def rj(x):
@@ -208,7 +249,21 @@ def dogleg_stage_reference(model, x0, h, dts, d_vecd, w_sm, e_n, q_n,
                                       None)
 
     x, ok, iters, _, J = cm.dogleg_cm(rj, x0, tol, max_iter, active0=active)
-    return x, ok, iters, None, J
+    return x, ok, iters, J
+
+
+def dogleg_stage_reference(model, x0, h, dts, d_vecd, w_sm, e_n, q_n,
+                           active, tol, max_iter):
+    """Plain-torch version of the stage (same contract as dogleg_stage)."""
+    return _detached(_plain_stage, model, x0, h, dts, d_vecd, w_sm, e_n,
+                     q_n, active, tol, max_iter)
+
+
+def _kernel_stage(model, x0, h, dts, d_vecd, w_sm, e_n, q_n, active, tol,
+                  max_iter):
+    args = [a.contiguous() for a in (d_vecd, w_sm, e_n, q_n, h[0], dts, x0)]
+    return KERNEL.launch(kernel_params(model, tol, max_iter), *args,
+                         active.to(torch.uint8).contiguous())
 
 
 def dogleg_stage(model, x0, h, dts, d_vecd, w_sm, e_n, q_n, active, tol,
@@ -238,8 +293,5 @@ def dogleg_stage(model, x0, h, dts, d_vecd, w_sm, e_n, q_n, active, tol,
             raise ValueError(f"dogleg_stage: bad input shape {a.shape}")
     if active.shape != (N,) or active.device != x0.device:
         raise ValueError("dogleg_stage: active must be (N,) on the device")
-    args = [a.contiguous() for a in args]
-    x, ok, iters, J = KERNEL.launch(kernel_params(model, tol, max_iter),
-                                    *args, active.to(torch.uint8)
-                                    .contiguous())
-    return x, ok, iters, None, J
+    return _detached(_kernel_stage, model, x0, h, dts, d_vecd, w_sm, e_n,
+                     q_n, active, tol, max_iter)

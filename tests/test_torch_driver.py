@@ -257,8 +257,8 @@ def test_simulation_still_refuses(tmp_path, what, match):
 
 
 def test_model_setup_point_major():
-    """The point-major ``model_setup`` (a wrapper over the port's
-    component-major update) against the reference's point-major one
+    """The point-major ``model_setup`` (``evptn.batched_update`` on the
+    component-major engine) against the reference's point-major one
     (``evptn._outputs_from_solution`` under vmap, ``tangent_cm``), pure
     f64 on both sides and both cold: stress, end state and tangent to
     1e-10 rel, at dt 0.1 (one substep) and 1.0 (ten)."""

@@ -83,7 +83,9 @@ def assert_same_model(a, b):
 @pytest.mark.parametrize("slip", ["POWERVOCE", "POWERVOCENL"])
 def test_build_model_and_converter(slip):
     jm, tm = models(slip)
-    # the port implements the reference's production scheme only
+    # the factory builds the reference's production scheme: these are
+    # the defaults of every knob (the other settings are held to the
+    # reference in test_torch_point_variants*.py)
     ev = jm.evptn
     assert (ev.engine, ev.hardness_mode, ev.stagger_iters, ev.h_per_substep,
             ev.tangent_mode, ev.flow_theta, ev.h_gd_source, ev.rot_frame,
