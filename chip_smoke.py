@@ -84,7 +84,7 @@ failed check exits non-zero with no result line:
 15. ``workflows.run_loading`` at 4^3 on the card against the CPU (rel
    1e-6);
 16. a ``kernels`` JSON line; then the ``ok`` JSON line, last (after
-   phases 17 to 19);
+   phases 17 to 20);
 17. the slab domain decomposition (``parallel/``): (a) the 32^3 Voce case
    with ``parallel_mode = "slab"`` and Jacobi through the CLI under
    torchrun's variables for a world size of 1 (an NCCL process group),
@@ -151,13 +151,35 @@ failed check exits non-zero with no result line:
    tangent), both against a central difference of the curve's mean
    sigma_zz (rel 1e-4), the values with dual inputs against those without
    (rel 1e-12); and an MTSDD (SplineG) curve with ``ift_tangents`` at
-   1,024 points, its c1 tangent on the card against the CPU (rel 1e-6).
+   1,024 points, its c1 tangent on the card against the CPU (rel 1e-6);
+20. production-size meshes on one card (``--only large``), the Voce case
+   (500 grains, uniaxial tension), under ``torch.inference_mode``: (a) at
+   64^3, ``MechSystem.make_step(2)`` from phase 5's start at dt 0.01 with
+   the setup whole (``EXACONSTIT_SETUP_CHUNKS=1``) and in "auto"'s 8
+   element chunks: the median seconds of 3 calls after one warm call,
+   kernel launches per call (3 against 24) and points per launch, the
+   memory held before the calls and their peak; then one setup's six
+   outputs, chunked against whole: bitwise equal, or the largest relative
+   difference of each, held at rel 1e-10 (f64 outputs) and 1e-6 (the f32
+   blocks and, with the f32 EA build, the diagonal taken from them), with
+   the layer and the op of the lagged tangent where they part; (b) one
+   ``run_simulation`` step at dt 0.005 (the first dt of bench.py's ramp),
+   chunks "auto": Newton and Krylov counts, sub-solves, sigma_zz, wall,
+   peak and launches; (c) the storage rule: one setup with the f64 EA
+   build, whose "auto" storage takes f32 above 1,500,000 points: blocks
+   bitwise the f64 build's cast to f32, the diagonal and every other
+   output bitwise the f64 system's, the blocks' bytes and each setup's
+   peak; (d) at 96^3, chunks "auto" (27 chunks of 262,144 points; GMG
+   down to 6^3 and its dense coarse solve): one ``make_step(1)`` call with
+   its seconds, peak memory and launches.  The ``kernels`` line gains the
+   64^3 launches per call and ms per launch.
 """
 
 import argparse
 import collections
 import contextlib
 import dataclasses
+import gc
 import glob
 import json
 import os
@@ -251,6 +273,17 @@ REPL_CARDS_SHARDS = 4
 REPL_NUMERICS = (("this path's", "jacobi", True), ("phase 5's", "auto", True))
 # the region names of MechSystem._timed
 REGIONS = ("operator_setup", "line_search", "krylov_solve")
+# phase 20: the production-size meshes, the setup chunks "auto" takes
+# there (262,144 points a chunk), make_step's dt (phase 14's), the first
+# dt of bench.py's ramp, and the bars of the chunked setup against the
+# whole one where the two are not bitwise equal (f64 outputs of the f64
+# point solve; the f32-built blocks and the diagonal taken from them)
+LARGE_EDGE, LARGE_CHUNKS = 64, 8
+HUGE_EDGE, HUGE_CHUNKS = 96, 27
+LARGE_DT, LARGE_STEP_DT = 0.01, 0.005
+LARGE_F64_RTOL, LARGE_F32_RTOL = 1e-10, 1e-6
+SETUP_NAMES = ("residual", "EA blocks", "diagonal", "stress", "end state",
+               "point solution")
 BCC_STAGE_SIZE = 262_144
 TPU_KERNEL = "exaconstit_tpu/solvers/dogleg_pallas.py:211"
 KERNEL_SOURCE = "exaconstit_tpu_torch/csrc/dogleg_voce.cu"
@@ -1422,32 +1455,49 @@ def slab_batch_rounding(sim, dt):
                 + f"; inside the lagged tangent, {first}")
 
 
-def first_batch_dependent_op(whole, alone, idx, n_whole):
-    """The first torch op inside ``evptn_cm.tangent_cm_core`` whose output
-    over the whole batch of ``n_whole`` points (``whole()``), cut to the
-    points ``idx``, differs from its output on those points alone
-    (``alone()``): every op's output is recorded under a
-    ``TorchFunctionMode`` and the two runs are compared op by op on the
-    outputs whose last axis is the points."""
+def first_batch_dependent_op(whole, alone, idx, n_whole, scope=None):
+    """The first torch op inside ``scope`` (a module and the name of a
+    function in it; by default ``evptn_cm.tangent_cm_core``) whose output
+    over the whole batch of ``n_whole`` points or elements (``whole()``),
+    cut to ``idx``, differs from its output on those alone (``alone()``):
+    the run alone records every op's output under a
+    ``TorchFunctionMode``, and the whole run compares each of its ops'
+    outputs whose last axis is the batch with the same op's as it goes
+    (keeping none of them).  The two runs must take the same ops (no
+    loop whose trip count depends on the batch)."""
     from torch.overrides import TorchFunctionMode
     from exaconstit_tpu_torch.models import evptn_cm
 
+    module, fname = scope or (evptn_cm, "tangent_cm_core")
+    n_alone = len(idx)
+
     class Trace(TorchFunctionMode):
-        def __init__(self):
+        def __init__(self, ref=None):
             super().__init__()
-            self.outs = []
+            self.ref, self.outs, self.count, self.first = ref, [], 0, None
 
         def __torch_function__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
-            if isinstance(out, torch.Tensor):
-                self.outs.append((getattr(func, "__name__", repr(func)),
-                                  out))
+            if not isinstance(out, torch.Tensor):
+                return out
+            i, self.count = self.count, self.count + 1
+            name = getattr(func, "__name__", repr(func))
+            if self.ref is None:
+                self.outs.append(out)
+            elif self.first is None and i < len(self.ref):
+                ta = self.ref[i]
+                if (out.shape[-1] == n_whole
+                        and ta.shape == out.shape[:-1] + (n_alone,)):
+                    cut = out[..., idx]
+                    if not torch.equal(cut, ta):
+                        self.first = (i, name, out.dtype, tuple(ta.shape),
+                                      float((cut - ta).abs().max()))
             return out
 
-    def traced(run):
-        inner, depth, trace = evptn_cm.tangent_cm_core, [0], Trace()
+    def traced(run, trace):
+        inner, depth = getattr(module, fname), [0]
 
-        def tangent(*args, **kw):  # its f32 call of itself runs inside
+        def scoped(*args, **kw):  # a call of itself runs inside
             if depth[0]:
                 return inner(*args, **kw)
             depth[0] += 1
@@ -1457,25 +1507,21 @@ def first_batch_dependent_op(whole, alone, idx, n_whole):
             finally:
                 depth[0] -= 1
 
-        evptn_cm.tangent_cm_core = tangent
+        setattr(module, fname, scoped)
         try:
             run()
         finally:
-            evptn_cm.tangent_cm_core = inner
-        return trace.outs
+            setattr(module, fname, inner)
+        return trace
 
-    a, b = traced(whole), traced(alone)
-    n_alone = len(idx)
-    for i, ((name, tw), (_, ta)) in enumerate(zip(a, b)):
-        if tw.shape[-1] != n_whole or ta.shape != tw.shape[:-1] + (n_alone,):
-            continue
-        cut = tw[..., idx]
-        if not torch.equal(cut, ta):
-            d = float((cut - ta).abs().max())
-            return (f"op {i} of {len(a)} ({len(b)} alone), {name}, "
-                    f"{tw.dtype} {tuple(ta.shape)}, is the first to "
-                    f"differ: max abs diff {d:.3e}")
-    return f"none of {len(a)} ops ({len(b)} alone) differ"
+    b = traced(alone, Trace())
+    a = traced(whole, Trace(b.outs))
+    if a.first is not None:
+        i, name, dtype, shape, d = a.first
+        return (f"op {i} of {a.count} ({b.count} alone), {name}, "
+                f"{dtype} {shape}, is the first to differ: max abs diff "
+                f"{d:.3e}")
+    return f"none of {a.count} ops ({b.count} alone) differ"
 
 
 def slab_pieces(toml, launch_env):
@@ -2343,9 +2389,286 @@ def phase_variants(workdir, main_path=None):
     return dict(leg_a, b=leg_b, d=leg_d)
 
 
+def large_make_step(sim, newton_iters, reps, label):
+    """``make_step(newton_iters)`` on ``sim``'s system from phase 5's
+    start at LARGE_DT: one warm call when ``reps`` > 1, then ``reps``
+    timed calls, each with the previous call's outputs released; the
+    memory held before the timed calls, their peak, the kernel's launches
+    and their device ms."""
+    from exaconstit_tpu_torch.solvers import dogleg_cuda as dc
+    sysm = sim.system
+    gc.collect()
+    built = torch.cuda.memory_allocated()
+    step = sysm.make_step(newton_iters)
+    args = newton_start(sim, LARGE_DT)
+    if reps > 1:
+        step(*args)
+    torch.cuda.synchronize()
+    gc.collect()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times, out = [], None
+    with LaunchRecorder(dc.KERNEL) as rec:
+        dc.KERNEL.launches = 0
+        for _ in range(reps):
+            out = None
+            t0 = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = dc.KERNEL.launches
+    peak = torch.cuda.max_memory_allocated()
+    ms = rec.read()[0]
+    check(all(bool(torch.isfinite(t).all()) for t in out),
+          f"{label}: make_step returned non-finite values")
+    per_call = launches / reps
+    setups = newton_iters + 1
+    check(per_call == setups * sysm.setup_chunks,
+          f"{label}: {per_call:g} kernel launches per call, expected "
+          f"{setups} setups x {sysm.setup_chunks} chunks")
+    check(set(rec.points) == {sysm.npts // sysm.setup_chunks},
+          f"{label}: points per launch {sorted(set(rec.points))}")
+    secs = float(np.median(times))
+    szz = float(sysm.vol_avg(out[2].reshape(6, sysm.nq, -1),
+                             sysm.emap.gather(out[1]))[2])
+    log(f"[{label}] make_step({newton_iters}) dt {LARGE_DT}, "
+        f"{sysm.setup_chunks} setup chunk(s): median {secs:.3f} s of "
+        f"{reps} call(s) ({', '.join(f'{t:.3f}' for t in times)}); "
+        f"{per_call:g} kernel launches per call of {rec.points[0]} points, "
+        f"device ms per launch median {float(np.median(ms)):.4f}, max "
+        f"{float(ms.max()):.4f}; memory held by the built Simulation "
+        f"{built / 2**30:.3f} GiB, before the calls {held / 2**30:.3f} GiB, "
+        f"their peak {peak / 2**30:.3f} GiB; final |r| "
+        f"{float(out[4]):.3e}, szz {szz:.6g}")
+    return dict(seconds=secs, launches=per_call, points=rec.points[0],
+                median_ms=float(np.median(ms)), max_ms=float(ms.max()),
+                built=built, held=held, peak=peak)
+
+
+def one_setup(sysm, args):
+    """One setup of ``sysm`` at ``args`` (``newton_start``'s), cold point
+    solves, and the peak memory it took."""
+    v, x_beg, state, dt, ess = args
+    xw = torch.zeros((8, sysm.npts), dtype=sysm.dtype, device=sysm.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = sysm.setup(v, x_beg, state, dt, ess, True, sysm.compute_nsub(dt),
+                     xw, False)
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated()
+
+
+def chunk_parting(whole, chunked, args, dt):
+    """Where a chunked setup parts from the whole one.  For each chunk,
+    each layer computed on the chunk's elements alone against the whole
+    system's slice, every layer fed the whole's slice of its inputs: the
+    velocity gradient, the point solve's outputs, the EA build on the
+    same tangent (in the build's dtype), the force on the same stress.
+    In the first chunk that parts, the first op of the EA build and of
+    the lagged tangent whose output parts (``first_batch_dependent_op``;
+    the trust-region loops take batch-dependent trip counts, so the
+    point solve is compared by its outputs only)."""
+    from exaconstit_tpu_torch.fem import operators as ops
+    v, x_beg, state = args[0], args[1], args[2]
+    nq, ne, nc = whole.nq, whole.ne, chunked.setup_chunks
+    nec = ne // nc
+    el_x = whole.emap.gather(x_beg + dt * v)
+    el_v = whole.emap.gather(v)
+    dtype = torch.float32 if chunked.ea_asm_f32 else el_x.dtype
+    geo = (whole.dshape.to(dtype), whole.qwts.to(dtype))
+
+    def solve(L, st):
+        return whole.model.model_setup_cm(
+            dt, L, st, compute_tangent=True, nsub=whole.compute_nsub(dt),
+            with_solution=True)
+
+    L = whole._vgrad(el_x, el_v)
+    out_w = solve(L, state)
+    c6 = out_w[2].reshape(6, 6, nq, ne).to(dtype)
+    s_w = out_w[0].reshape(6, nq, ne)
+    xd = el_x.to(dtype)
+    k_w = ops.assemble_ea_gradient_cm(xd, *geo, c6, dt)
+    f_w = ops.residual_force_cm(el_x, whole.dshape, whole.qwts, s_w)
+    report = []
+    for c in range(nc):
+        e = slice(c * nec, (c + 1) * nec)
+
+        def pts(a):
+            lead = a.shape[:-1]
+            return a.reshape(*lead, nq, ne)[..., e].reshape(*lead, -1)
+
+        found = []
+
+        def compare(name, a, b):
+            if not torch.equal(a, b):
+                d = float((a - b).abs().max())
+                found.append(f"{name} {d:.3e} "
+                             f"({d / float(a.abs().max()):.1e} rel)")
+
+        compare("velocity gradient", pts(L),
+                whole._vgrad(el_x[..., e], el_v[..., e]))
+        out_c = solve(pts(L).contiguous(), pts(state).contiguous())
+        for name, a, b in zip(("stress", "end state", "tangent",
+                               "solution"), out_w, out_c):
+            compare(name, pts(a), b)
+        del out_c
+        compare(f"EA build ({str(dtype)[6:]}) on the same tangent",
+                k_w[..., e], ops.assemble_ea_gradient_cm(
+                    xd[..., e], *geo, c6[..., e], dt))
+        compare("force on the same stress", f_w[..., e],
+                ops.residual_force_cm(el_x[..., e], whole.dshape,
+                                      whole.qwts, s_w[..., e]))
+        if not found:
+            continue
+        report.append(f"chunk {c}: " + ", ".join(found))
+        if len(report) > 1:
+            continue
+        els = torch.arange(ne, device=L.device)[e]
+        first_ea = first_batch_dependent_op(
+            lambda: ops.assemble_ea_gradient_cm(xd, *geo, c6, dt),
+            lambda: ops.assemble_ea_gradient_cm(xd[..., e], *geo,
+                                                c6[..., e], dt),
+            els, ne, scope=(ops, "assemble_ea_gradient_cm"))
+        first_tan = first_batch_dependent_op(
+            lambda: solve(L, state),
+            lambda: solve(pts(L).contiguous(), pts(state).contiguous()),
+            pts(torch.arange(nq * ne, device=L.device)[None])[0], nq * ne)
+        report.append(f"in chunk {c}'s EA build, {first_ea}; inside its "
+                      f"lagged tangent, {first_tan}")
+    return "; ".join(report) or "no chunk's layers part"
+
+
+def phase_large(workdir):
+    """Phase 20: production-size meshes on one card."""
+    from exaconstit_tpu_torch.driver import (EA_F32_POINTS, MechSystem,
+                                             run_simulation)
+    from exaconstit_tpu_torch.solvers import dogleg_cuda as dc
+    t_phase = time.perf_counter()
+    label = f"20 large {LARGE_EDGE}^3"
+    toml = write_case((LARGE_EDGE,) * 3, (LARGE_STEP_DT,),
+                      os.path.join(workdir, "large"))
+    # (a) make_step(2), the setup whole and in "auto"'s chunks
+    steps = {}
+    for chunks in ("1", "auto"):
+        with env(EXACONSTIT_SETUP_CHUNKS=chunks), torch.inference_mode():
+            sim = card_simulation(toml)
+            want = 1 if chunks == "1" else LARGE_CHUNKS
+            check(sim.system.setup_chunks == want,
+                  f"{label}: setup_chunks {sim.system.setup_chunks} under "
+                  f"{chunks!r}, expected {want}")
+            steps[chunks] = large_make_step(sim, 2, 3, label)
+        if chunks == "1":
+            del sim
+    with torch.inference_mode():
+        sysm = sim.system
+        args = newton_start(sim, LARGE_DT)
+        whole = MechSystem(sim.opt, sim.mesh, sim.model, device="cuda",
+                           setup_chunks=1)
+        out_c, _ = one_setup(sysm, args)
+        out_w, _ = one_setup(whole, args)
+        gaps, same = {}, True
+        for name, a, b in zip(SETUP_NAMES, out_c, out_w):
+            check(a.dtype == b.dtype and a.shape == b.shape,
+                  f"{label}: chunked {name} {a.dtype} {tuple(a.shape)} "
+                  f"against {b.dtype} {tuple(b.shape)}")
+            if torch.equal(a, b):
+                gaps[name] = 0.0
+                continue
+            same = False
+            gaps[name] = float((a - b).abs().max() / b.abs().max())
+        # the blocks are built in f32 (ea_asm_f32), and the diagonal is
+        # theirs: both carry the f32 build's rounding
+        f32_built = ("EA blocks", "diagonal") if sysm.ea_asm_f32 \
+            else ("EA blocks",)
+        for name, gap in gaps.items():
+            bar = LARGE_F32_RTOL if name in f32_built else LARGE_F64_RTOL
+            check(gap <= bar, f"{label}: the chunked setup's {name} is "
+                  f"{gap:.3e} rel from the whole one's (bar {bar:g})")
+        parting = "" if same else "; " + chunk_parting(
+            whole, sysm, args, LARGE_DT)
+        log(f"[{label}] one setup in {LARGE_CHUNKS} chunks against whole: "
+            + ("bitwise equal in all six outputs" if same else
+               ", ".join(f"{n} {'bitwise' if g == 0 else f'{g:.3e} rel'}"
+                         for n, g in gaps.items())) + parting)
+        del out_c, out_w, whole
+        # (c) the storage rule on the card: the f64 build, its blocks
+        # stored in f32 above 1,500,000 points
+        f32s = MechSystem(sim.opt, sim.mesh, sim.model, device="cuda",
+                          ea_asm_f32=False)
+        f64s = MechSystem(sim.opt, sim.mesh, sim.model, device="cuda",
+                          ea_asm_f32=False, ea_f32=False)
+        check(f32s.ea_f32 and f32s.ea_dtype == torch.float32
+              and not f64s.ea_f32,
+              f"{label}: auto storage at {f32s.npts} points took "
+              f"{f32s.ea_dtype}")
+        o32, peak32 = one_setup(f32s, args)
+        o64, peak64 = one_setup(f64s, args)
+        check(o32[1].dtype == torch.float32
+              and torch.equal(o32[1], o64[1].to(torch.float32)),
+              f"{label}: the stored f32 blocks are not the f64 build's cast")
+        check(torch.equal(o32[2], o64[2]),
+              f"{label}: the f32-stored system's diagonal is not the f64 "
+              "build's")
+        for i in (0, 3, 4, 5):
+            check(torch.equal(o32[i], o64[i]),
+                  f"{label}: storage changed the {SETUP_NAMES[i]}")
+        nb32 = o32[1].numel() * o32[1].element_size()
+        nb64 = o64[1].numel() * o64[1].element_size()
+        log(f"[{label}] storage rule: {f32s.npts} points > "
+            f"{EA_F32_POINTS:,}, auto "
+            f"stores the f64 build's blocks in f32: blocks bitwise the f64 "
+            f"build's cast, diagonal and the other outputs bitwise the f64 "
+            f"system's; blocks {nb32 / 1e6:.1f} MB against {nb64 / 1e6:.1f} "
+            f"MB; setup peak {peak32 / 2**30:.3f} GiB against "
+            f"{peak64 / 2**30:.3f} GiB")
+        del o32, o64, f32s, f64s, sim, sysm, args
+    # (b) one Simulation step at dt 0.005, chunks "auto"
+    run_dir = os.path.join(workdir, "large", "run_cuda")
+    os.makedirs(run_dir)
+    torch.cuda.reset_peak_memory_stats()
+    dc.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    sim = run_simulation(toml, workdir=run_dir, verbose=False, device="cuda")
+    wall = time.perf_counter() - t0
+    launches = dc.KERNEL.launches
+    peak = torch.cuda.max_memory_allocated()
+    stress = np.loadtxt(os.path.join(run_dir, "avg_stress.txt"), ndmin=2)
+    check(stress.shape == (1, 6) and np.isfinite(stress).all(),
+          f"{label}: the step's average stress {stress}")
+    check(sim.system.setup_chunks == LARGE_CHUNKS and launches > 0
+          and launches % LARGE_CHUNKS == 0,
+          f"{label}: {launches} launches over {sim.system.setup_chunks} "
+          "chunks")
+    st = sim.step_stats[0]
+    log(f"[{label}] Simulation step dt {LARGE_STEP_DT}: "
+        f"{sim.step_times[0]:.2f} s, NR {st['nr_iters']} (first solve "
+        f"{st['first_nr']}), Krylov/NR {st['krylov_iters']}, "
+        f"{st['subdivided']} sub-solve(s), szz {stress[0, 2]:.6g}; wall "
+        f"{wall:.2f} s, peak {peak / 2**30:.3f} GiB, {launches} launches "
+        f"({launches // LARGE_CHUNKS} setups and residuals x "
+        f"{LARGE_CHUNKS} chunks), precond {sim.system.precond_kind}")
+    step_b = dict(seconds=sim.step_times[0], wall=wall, peak=peak,
+                  launches=launches, nr=st["nr_iters"])
+    del sim
+    # (d) 96^3, chunks "auto": one make_step(1) call
+    label96 = f"20 large {HUGE_EDGE}^3"
+    toml96 = write_case((HUGE_EDGE,) * 3, (LARGE_DT,),
+                        os.path.join(workdir, "huge"))
+    with torch.inference_mode():
+        sim = card_simulation(toml96)
+        check(sim.system.setup_chunks == HUGE_CHUNKS,
+              f"{label96}: setup_chunks {sim.system.setup_chunks}")
+        huge = large_make_step(sim, 1, 1, label96)
+        del sim
+    secs = time.perf_counter() - t_phase
+    log(f"[20 large] {secs:.1f} s for the phase")
+    return dict(whole=steps["1"], chunked=steps["auto"], step=step_b,
+                huge=huge, seconds=secs)
+
+
 PHASES = ("stage", "staggered", "main", "cpu", "mtsdd", "mesh_pa",
           "configs", "f32", "profile", "guard", "make_step", "loading",
-          "slab", "replicated", "variants")
+          "slab", "replicated", "variants", "large")
 
 
 def main(argv=None):
@@ -2402,6 +2725,8 @@ def main(argv=None):
             if "variants" in only:
                 variants = phase_variants(os.path.join(tmp, "variants"),
                                           main_path)
+            if "large" in only:
+                large = phase_large(os.path.join(tmp, "large"))
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
@@ -2432,7 +2757,14 @@ def main(argv=None):
         "replicated_path_ms_per_launch_max": replicated["max_ms"],
         "launches_coupled_tangent_path": variants["launches"],
         "coupled_tangent_path_ms_per_launch_median": variants["median_ms"],
-        "coupled_tangent_path_ms_per_launch_max": variants["max_ms"]}]}))
+        "coupled_tangent_path_ms_per_launch_max": variants["max_ms"],
+        "launches_per_make_step_64": large["chunked"]["launches"],
+        "make_step_64_ms_per_launch_median": large["chunked"]["median_ms"],
+        "make_step_64_ms_per_launch_max": large["chunked"]["max_ms"],
+        "launches_per_make_step_64_whole": large["whole"]["launches"],
+        "make_step_64_whole_ms_per_launch_median":
+            large["whole"]["median_ms"],
+        "launches_per_make_step_96": large["huge"]["launches"]}]}))
     log(f"[16 total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

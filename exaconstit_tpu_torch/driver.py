@@ -55,7 +55,8 @@ from .parallel import sharding
 from .parallel.replicated import ReplicatedMap
 from .solvers import gmg
 from .solvers.krylov import gmres, minres, pcg, pcg_refined
-from .utils.guards import check_finite, numerics_checks_enabled
+from .utils.guards import (FiniteTally, check_finite,
+                           numerics_checks_enabled)
 from .utils.profiling import Regions
 
 # ----------------------------------------------------------------------------
@@ -150,6 +151,39 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+# one device's setup takes its elements in chunks of about this many
+# points, and an f64 run above this many stores its EA blocks in f32
+# (the reference's constants, exaconstit_tpu/driver.py:438,452)
+SETUP_CHUNK_POINTS = 262_144
+EA_F32_POINTS = 1_500_000
+
+
+def setup_chunk_count(ne, nq, requested="auto", sharded=False) -> int:
+    """The number of element chunks one setup takes, the reference's rule:
+    "auto" takes ceil(ne * nq / SETUP_CHUNK_POINTS), an integer (or its
+    string) itself; at most ``ne``, lowered until it divides ``ne``; a
+    sharded map takes 1."""
+    if sharded:
+        return 1
+    if requested == "auto":
+        target = -(-ne * nq // SETUP_CHUNK_POINTS)
+    else:
+        target = int(requested)
+    nc = min(max(1, target), ne)
+    while ne % nc:
+        nc -= 1
+    return nc
+
+
+def _switch(value, variable):
+    """``value`` if given, else the environment's ``variable``: "auto"
+    (also when unset), or True for "1" and False for anything else."""
+    if value is not None:
+        return value
+    env = os.environ.get(variable, "auto")
+    return env if env == "auto" else env == "1"
+
+
 class MechSystem:
     """FE space, material model and the per-iteration compute on one
     device, component-major: nodal vectors flat (3*nn,) component planes,
@@ -167,7 +201,15 @@ class MechSystem:
     built in f64 even where the point solve is mixed precision.
     Elsewhere ``ea_asm_f32`` builds the 24x24 EA blocks in f32 (default:
     when the model solves its points in mixed precision, as the
-    reference does for Voce); the Newton residual stays f64.
+    reference does for Voce), and ``ea_f32`` builds them in f64 and
+    stores them in f32, the diagonal taken before the cast (default:
+    above ``EA_F32_POINTS`` points over all shards, pads included); the
+    Newton residual stays f64.  There the setup and the line-search
+    residual take the elements in ``setup_chunks`` contiguous chunks
+    (``setup_chunk_count``: chunks of about ``SETUP_CHUNK_POINTS`` points
+    by default on one device, one over shards), each output written in
+    place into one array of full size, so that the point solve's
+    temporaries are those of one chunk.
 
     The Krylov solver is ``opt.solver``: PCG in mixed precision (f32
     inner, f64 replay) with the preconditioner ``opt.krylov_precond``
@@ -193,10 +235,22 @@ class MechSystem:
     point-major half, the f32 EA build and the warm starts of one
     device, as the reference does; the slab's ``SlabMap``
     (``warm_everywhere``) warm-starts every point solve, and its system
-    asks for the f64 EA build."""
+    asks for the f64 EA build.
+
+    The switches the reference reads from the environment when it is
+    built are read here when an argument is None: ``setup_chunks``
+    (``EXACONSTIT_SETUP_CHUNKS``, "auto" or a count), ``ea_f32``
+    (``EXACONSTIT_EA_F32``: "auto", "1", "0"), ``ea_asm_f32``
+    (``EXACONSTIT_EA_ASM_F32``, the same), ``warm_start``
+    (``EXACONSTIT_WARM_START=0`` starts every point solve cold), the
+    preconditioner (``EXACONSTIT_PRECOND`` over ``opt.krylov_precond``;
+    ``rebuild_krylov`` swaps it on a live system), and
+    ``EXACONSTIT_TPU_NO_CM=1``, which puts any model on the point-major
+    half."""
 
     def __init__(self, opt: ExaOptions, mesh: HexMesh, model,
-                 device="cuda", ea_asm_f32=None, emap=None):
+                 device="cuda", ea_asm_f32=None, emap=None,
+                 setup_chunks=None, ea_f32=None, warm_start=None):
         self.device = resolve_device(device)
         self.dtype = run_dtype(opt)
         self.opt = opt
@@ -206,7 +260,9 @@ class MechSystem:
         self.pa = opt.assembly == Assembly.PA and not self.bbar
         sharded = emap is not None
         self.layout = emap.layout if sharded else None
-        self.point_major = (self.bbar or self.pa or model.point_major) \
+        no_cm = os.environ.get("EXACONSTIT_TPU_NO_CM") == "1"
+        self.point_major = (self.bbar or self.pa or model.point_major
+                            or no_cm) \
             and not getattr(emap, "warm_everywhere", False)
         if sharded:
             self.emap = emap
@@ -223,29 +279,27 @@ class MechSystem:
         self.ne = emap.ne if sharded else self.fes.num_elems
         self.nq = self.fes.nqpts
         self.npts = self.ne * self.nq
+        f64_cm = not self.point_major and self.dtype == torch.float64
         mixed = getattr(getattr(model, "evptn", None), "mixed_precision",
                         False)
-        self.ea_asm_f32 = (not self.point_major
-                           and self.dtype == torch.float64
-                           and (mixed if ea_asm_f32 is None
-                                else bool(ea_asm_f32)))
-        self.gmg_meta = None
-        kind = opt.krylov_precond
-        eligible = (mesh.structure is not None and self.fes.ref.nnodes == 8
-                    and opt.solver == KrylovSolver.PCG
-                    and not self.point_major and not sharded)
-        if kind in ("gmg", "auto") and eligible:
-            meta = gmg.GMGMeta(mesh.structure)
-            if meta.usable:
-                self.gmg_meta = meta
-            elif kind == "gmg":
-                print("gmg preconditioner unavailable (grid does not "
-                      "coarsen); using Jacobi")
-        elif kind == "gmg":
-            print("gmg preconditioner requires PCG on the single-device "
-                  "component-major EA path on a structured order-1 mesh; "
-                  "using Jacobi")
-        self.precond_kind = "gmg" if self.gmg_meta is not None else "jacobi"
+        asm = _switch(ea_asm_f32, "EXACONSTIT_EA_ASM_F32")
+        self.ea_asm_f32 = f64_cm and (mixed if asm == "auto" else asm)
+        store = _switch(ea_f32, "EXACONSTIT_EA_F32")
+        if store == "auto":  # the global point count, pads included
+            store = self.nq * (emap.ne_pad if sharded else self.ne) \
+                > EA_F32_POINTS
+        self.ea_f32 = f64_cm and (self.ea_asm_f32 or store)
+        self.ea_dtype = torch.float32 if self.ea_f32 else self.dtype
+        chunks = os.environ.get("EXACONSTIT_SETUP_CHUNKS", "auto") \
+            if setup_chunks is None else setup_chunks
+        self.setup_chunks = 1 if self.point_major else setup_chunk_count(
+            self.ne, self.nq, chunks, sharded)
+        self.warm_start = (os.environ.get("EXACONSTIT_WARM_START", "1")
+                           != "0") if warm_start is None else warm_start
+        self._mesh = mesh
+        self._sharded = sharded
+        self.rebuild_krylov(os.environ.get("EXACONSTIT_PRECOND",
+                                           opt.krylov_precond))
         self.last_newton_stats = {}
         # host wall time per region (opt-in: it synchronises the device
         # at every boundary), and the layer guards
@@ -319,22 +373,67 @@ class MechSystem:
     def _vgrad(self, el_x, el_v):
         J = jacobians_cm(el_x, self.dshape)
         L = grad_calc_cm(el_v, self.dshape, adjugate_3x3_cm(J), det_3x3_cm(J))
-        return L.reshape(3, 3, self.npts)
+        return L.reshape(3, 3, -1)
 
     def _check(self, layer, **tensors):
         if self.check_numerics:
             check_finite(layer, **tensors)
 
-    def _point_update(self, v, x_end, state, dt, nsub, x_warm, warm_ok,
-                      compute_tangent):
-        """Geometry and the material update at every point; the
-        point-major half starts each point solve cold."""
+    def _over_chunks(self, core, v, x_end, state, dt, nsub, x_warm,
+                     warm_ok, point_fields):
+        """``core``'s outputs at velocity ``v`` and coordinates ``x_end``
+        over the setup's element chunks [e0, e0 + nec): each chunk's
+        element vectors as views, its point fields (point index q*ne + e)
+        as contiguous copies, and each output written in place into one
+        array of full size (``point_fields`` flags the (k, nq*ne) point
+        fields among them, the rest are (..., ne) element fields), so
+        that a chunk's temporaries are gone before the next one starts.
+        The layer guards read once, over every chunk."""
         el_x = self.emap.gather(x_end)
         el_v = self.emap.gather(v)
-        if self.point_major:
+        if self.point_major:  # its point solves start cold
             x_warm, warm_ok = None, False
+        tally = FiniteTally(self.check_numerics)
+        nc = self.setup_chunks
+        if nc == 1:
+            outs = core(el_x, el_v, state, x_warm, dt, nsub, warm_ok, tally)
+            tally.check()
+            return outs
+        nec, nq, ne = self.ne // nc, self.nq, self.ne
+
+        def points(a, e):
+            if a is None:
+                return None
+            return a.reshape(a.shape[0], nq, ne)[:, :, e].reshape(
+                a.shape[0], -1)
+
+        outs = None
+        for c in range(nc):
+            e = slice(c * nec, (c + 1) * nec)
+            got = core(el_x[..., e], el_v[..., e], points(state, e),
+                       points(x_warm, e), dt, nsub, warm_ok, tally)
+            if outs is None:
+                outs = [None if g is None else g.new_empty(
+                    (g.shape[0], self.npts) if pt else (*g.shape[:-1], ne))
+                    for g, pt in zip(got, point_fields)]
+            for o, g, pt in zip(outs, got, point_fields):
+                if g is None:
+                    continue
+                if pt:
+                    o.view(o.shape[0], nq, ne)[:, :, e] = g.view(
+                        g.shape[0], nq, nec)
+                else:
+                    o[..., e] = g
+            del got
+        tally.check()
+        return outs
+
+    def _point_update(self, el_x, el_v, state, dt, nsub, x_warm, warm_ok,
+                      compute_tangent, tally):
+        """The velocity gradient and the material update at the points of
+        the elements of ``el_x`` and ``el_v`` (all of them or a chunk)."""
         vgrad = self._vgrad(el_x, el_v)
-        self._check("velocity gradient", vgrad=vgrad)
+        tally.add("velocity gradient", vgrad=vgrad)
         if getattr(self.model, "supports_cm", True):
             out = self.model.model_setup_cm(
                 dt, vgrad, state, compute_tangent=compute_tangent,
@@ -346,27 +445,24 @@ class MechSystem:
                 compute_tangent=compute_tangent, nsub=nsub)
             out = (stress.T, state_end.T,
                    None if c6 is None else c6.permute(1, 2, 0), None)
-        self._check("point solve", stress=out[0], state=out[1],
-                    tangent=out[2])
-        return el_x, out
+        tally.add("point solve", stress=out[0], state=out[1],
+                  tangent=out[2])
+        return out
 
     def _force(self, el_x, stress):
-        stress_q = stress.reshape(6, self.nq, self.ne)
+        stress_q = stress.reshape(6, self.nq, -1)
         if self.bbar:
             return ops.residual_force_bbar_cm(el_x, self.dshape, self.qwts,
                                               stress_q)
         return ops.residual_force_cm(el_x, self.dshape, self.qwts, stress_q)
 
-    def setup(self, v, x_beg, state, dt, ess, advance_coords, nsub, x_warm,
-              warm_ok):
-        """Residual, operator data (EA blocks or the PA tensor), diagonal,
-        stress, end state and the point-solve solution (None on the
-        point-major half: it carries no warm start) at velocity iterate
-        v."""
-        x_end = x_beg + dt * v if advance_coords else x_beg
-        el_x, (stress, state_end, c6, x_sol) = self._point_update(
-            v, x_end, state, dt, nsub, x_warm, warm_ok, True)
-        c6_q = c6.reshape(6, 6, self.nq, self.ne)
+    def _setup_core(self, el_x, el_v, state, x_warm, dt, nsub, warm_ok,
+                    tally):
+        """(force, operator data, its local diagonal, stress, end state,
+        point solution) of the elements of ``el_x`` (all or a chunk)."""
+        stress, state_end, c6, x_sol = self._point_update(
+            el_x, el_v, state, dt, nsub, x_warm, warm_ok, True, tally)
+        c6_q = c6.reshape(6, 6, self.nq, -1)
         nen = self.fes.ref.nnodes
         args = (el_x, self.dshape, self.qwts, c6_q, dt)
         if self.pa:
@@ -383,8 +479,31 @@ class MechSystem:
         else:
             k_data = ops.assemble_ea_gradient_cm(*args)
             dloc = ops.ea_diagonal_cm(k_data, nen)
-        self._check("operator", operator_data=k_data)
-        force = self._force(el_x, stress)
+            if self.ea_dtype != k_data.dtype:
+                # the diagonal at full precision, then f32 storage (a copy
+                # of the diagonal, so the f64 blocks are not kept alive)
+                dloc = dloc.clone()
+                k_data = k_data.to(self.ea_dtype)
+        tally.add("operator", operator_data=k_data)
+        return (self._force(el_x, stress), k_data, dloc, stress, state_end,
+                x_sol)
+
+    def _resid_core(self, el_x, el_v, state, x_warm, dt, nsub, warm_ok,
+                    tally):
+        stress = self._point_update(el_x, el_v, state, dt, nsub, x_warm,
+                                    warm_ok, False, tally)[0]
+        return (self._force(el_x, stress),)
+
+    def setup(self, v, x_beg, state, dt, ess, advance_coords, nsub, x_warm,
+              warm_ok):
+        """Residual, operator data (EA blocks or the PA tensor), diagonal,
+        stress, end state and the point-solve solution (None on the
+        point-major half, which starts each point solve cold) at velocity
+        iterate v, over ``setup_chunks`` element chunks."""
+        x_end = x_beg + dt * v if advance_coords else x_beg
+        force, k_data, dloc, stress, state_end, x_sol = self._over_chunks(
+            self._setup_core, v, x_end, state, dt, nsub, x_warm, warm_ok,
+            (False, False, False, True, True, True))
         r = torch.where(ess, 0.0, self.emap.scatter_add(force))
         diag = torch.where(ess, 1.0, self.emap.scatter_add(dloc))
         self._check("diagonal", diagonal=diag)
@@ -393,10 +512,12 @@ class MechSystem:
 
     def residual_only(self, v, x_beg, state, dt, ess, nsub, x_warm,
                       warm_ok):
-        el_x, (stress, _, _, _) = self._point_update(
-            v, x_beg + dt * v, state, dt, nsub, x_warm, warm_ok, False)
-        r = torch.where(ess, 0.0,
-                        self.emap.scatter_add(self._force(el_x, stress)))
+        """The residual alone at velocity iterate v (the line search's),
+        over the setup's element chunks."""
+        force, = self._over_chunks(self._resid_core, v, x_beg + dt * v,
+                                   state, dt, nsub, x_warm, warm_ok,
+                                   (False,))
+        r = torch.where(ess, 0.0, self.emap.scatter_add(force))
         self._check("residual", residual=r)
         return r
 
@@ -423,11 +544,39 @@ class MechSystem:
         """Norm of a nodal vector (Newton's stop test), a 0-d tensor."""
         return torch.linalg.vector_norm(r)
 
+    def rebuild_krylov(self, precond_kind="jacobi"):
+        """Choose the Krylov solve's preconditioner on a live system (the
+        reference's ``rebuild_krylov``; the setup is not rebuilt): "gmg"
+        or "auto" take the GMG V-cycle where it applies (PCG on the
+        single-device component-major EA path on a structured order-1
+        grid that coarsens), else Jacobi, which "gmg" says; anything else
+        takes Jacobi.  It also reads ``opt.mixed_krylov`` (default True:
+        the f64 run's PCG in mixed precision), as the reference does."""
+        opt = self.opt
+        mesh = self._mesh
+        self.mixed_krylov = getattr(opt, "mixed_krylov", True)
+        self.gmg_meta = None
+        eligible = (mesh.structure is not None and self.fes.ref.nnodes == 8
+                    and opt.solver == KrylovSolver.PCG
+                    and not self.point_major and not self._sharded)
+        if precond_kind in ("gmg", "auto") and eligible:
+            meta = gmg.GMGMeta(mesh.structure)
+            if meta.usable:
+                self.gmg_meta = meta
+            elif precond_kind == "gmg":
+                print("gmg preconditioner unavailable (grid does not "
+                      "coarsen); using Jacobi")
+        elif precond_kind == "gmg":
+            print("gmg preconditioner requires PCG on the single-device "
+                  "component-major EA path on a structured order-1 mesh; "
+                  "using Jacobi")
+        self.precond_kind = "gmg" if self.gmg_meta is not None else "jacobi"
+
     def krylov_solve(self, k_data, diag, b, ess):
-        """PCG in mixed precision (f32 inner, f64 replay) with the GMG
-        V-cycle or Jacobi, or MINRES or GMRES in f64 with Jacobi; on an
-        f32 run each solver in plain f32.  Returns (x, iters, converged,
-        rel_red)."""
+        """PCG in mixed precision (f32 inner, f64 replay; plain PCG in the
+        run's dtype without ``mixed_krylov``) with the GMG V-cycle or
+        Jacobi, or MINRES or GMRES in f64 with Jacobi; on an f32 run each
+        solver in plain f32.  Returns (x, iters, converged, rel_red)."""
         opt = self.opt
         dinv = 1.0 / diag
 
@@ -442,7 +591,7 @@ class MechSystem:
             return minres(matvec, precond, *args)
         if opt.solver == KrylovSolver.GMRES:
             return gmres(matvec, precond, *args)
-        if b.dtype != torch.float64:
+        if b.dtype != torch.float64 or not self.mixed_krylov:
             if self.gmg_meta is not None:
                 levels = gmg.build_hierarchy(self.gmg_meta, k_data, ess,
                                              matvec, diag)
@@ -533,7 +682,7 @@ class MechSystem:
         NR takes the full step and falls back to the 3-point quadratic
         line search when the step fails to halve the residual; NRLS
         always line-searches.  The converged point-solve solution of the
-        last setup warm-starts the next one."""
+        last setup warm-starts the next one (with ``warm_start``)."""
         opt = self.opt
         ess = self._ess_flat(ess_mask)
         nsub = self.compute_nsub(dt)
@@ -554,7 +703,8 @@ class MechSystem:
 
         out = do_setup(v)
         r, k_data, diag, stress, state_end = out[:5]
-        xw, ok = out[5], True
+        if self.warm_start:
+            xw, ok = out[5], True
         norm0 = nrm = norm(r)
         norm_max = max(opt.newton_rel_tol * norm0, opt.newton_abs_tol)
         it = 0
@@ -605,7 +755,8 @@ class MechSystem:
                         out = do_setup(v_new)
             v = v_new
             r, k_data, diag, stress, state_end = out[:5]
-            xw = out[5]
+            if self.warm_start:
+                xw = out[5]
             nrm = norm(r)
             it += 1
 
@@ -620,7 +771,8 @@ class MechSystem:
         """One time step of fixed work, the reference's ``make_jit_step``:
         ``step(v, x_beg, state, dt, ess)`` runs ``newton_iters`` setups
         each followed by a Krylov update (no line search, the point
-        solution carried warm), then a final setup, and returns (v,
+        solution carried warm with ``warm_start``), then a final setup,
+        and returns (v,
         x_cur, stress, state_end, norm) with the final residual's norm
         as a 0-d tensor.  It adds no host read to those of the solvers
         it calls."""
@@ -635,7 +787,10 @@ class MechSystem:
                 r, k_data, diag, _, _, x_sol = self.setup(
                     v, x_beg, state, dt, ess, True, nsub, xw, ok)
                 v = v - self.krylov_solve(k_data, diag, r, ess)[0]
-                xw, ok = x_sol, True
+                # release this iteration's operator before the next setup
+                r = k_data = diag = None
+                if self.warm_start:
+                    xw, ok = x_sol, True
             r, _, _, stress, state_end, _ = self.setup(
                 v, x_beg, state, dt, ess, True, nsub, xw, ok)
             return (v, x_beg + dt * v, stress, state_end, self.norm(r))

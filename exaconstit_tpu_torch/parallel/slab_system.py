@@ -52,7 +52,8 @@ class SlabMechSystem(MechSystem):
     """``MechSystem`` over ``n_shards`` slab shards of the mesh, spread
     over the ranks of the process group (one rank without one)."""
 
-    def __init__(self, opt, mesh, model, n_shards, device="cuda"):
+    def __init__(self, opt, mesh, model, n_shards, device="cuda",
+                 warm_start=None):
         if opt.solver != KrylovSolver.PCG:
             raise ValueError("slab mode supports the PCG Krylov path; "
                              "set Solvers.Krylov.solver = 'PCG'")
@@ -60,9 +61,11 @@ class SlabMechSystem(MechSystem):
         self.part = build_slab_partition(np.asarray(mesh.conn),
                                          mesh.num_nodes, n_shards)
         # the slab's map makes the system the reference's slab: warm
-        # point solves everywhere, Jacobi only, the f64 EA build
+        # point solves everywhere (unless ``warm_start`` is off), Jacobi
+        # only, the f64 EA build and storage, one setup chunk
         super().__init__(opt, mesh, model, device=device, ea_asm_f32=False,
-                         emap=SlabMap(self.part, layout))
+                         emap=SlabMap(self.part, layout), ea_f32=False,
+                         warm_start=warm_start)
 
     # -- per-iteration compute ----------------------------------------------
 

@@ -150,7 +150,7 @@ def _ea_matvec(k_cm, smap, x, ess1):
     x = torch.where(ess1, 0.0, x)
     el_u = smap.gather(x)  # (3, 8, ne)
     u = el_u.transpose(0, 1).reshape(24, -1)
-    y = torch.einsum("abe,be->ae", k_cm, u).reshape(8, 3, -1)
+    y = torch.einsum("abe,be->ae", k_cm.to(u.dtype), u).reshape(8, 3, -1)
     out = smap.scatter_add(y.transpose(0, 1))
     return torch.where(ess1, x, out)
 
@@ -218,7 +218,7 @@ def _dense_factor(k, conn, ess, nn):
 
 
 def _dense_solve(level, b):
-    L = level["chol"]
+    L = level["chol"].to(b.dtype)
     y = torch.linalg.solve_triangular(L, b[:, None], upper=False)
     return torch.linalg.solve_triangular(L.T, y, upper=True)[:, 0]
 
@@ -270,23 +270,27 @@ def build_hierarchy(meta: GMGMeta, k_fine, ess_fine, fine_matvec,
 def v_cycle(levels, r, degree=3, coarse_dense=True):
     """One V(1,1) cycle; returns z ~= A^-1 r (symmetric in the A inner
     product, so a valid PCG preconditioner)."""
+    return _cycle(levels, 0, r, degree, coarse_dense)
 
-    def cycle(lev, b):
-        L = levels[lev]
-        if lev == len(levels) - 1:
-            if coarse_dense:
-                return _dense_solve(L, b)
-            return _chebyshev(L["matvec"], L["dinv"], b, torch.zeros_like(b),
-                              L["lmax"], 24)
-        x = _chebyshev(L["matvec"], L["dinv"], b, torch.zeros_like(b),
-                       L["lmax"], degree)
-        r = torch.where(L["ess"], 0.0, b - L["matvec"](x))
-        rc = _restrict(r.reshape(3, L["nn"]), L["grid"]).reshape(-1)
-        rc = torch.where(levels[lev + 1]["ess"], 0.0, rc)
-        zc = cycle(lev + 1, rc)
-        zf = _prolong(zc.reshape(3, levels[lev + 1]["nn"]),
-                      L["grid"]).reshape(-1)
-        x = x + torch.where(L["ess"], 0.0, zf)
-        return _chebyshev(L["matvec"], L["dinv"], b, x, L["lmax"], degree)
 
-    return cycle(0, r)
+def _cycle(levels, lev, b, degree, coarse_dense):
+    """The V-cycle from level ``lev`` down.  A module function, not a
+    closure that calls itself: such a closure is a reference cycle, and
+    it would keep the whole hierarchy (the fine blocks included) on the
+    device until Python's cycle collector runs."""
+    L = levels[lev]
+    if lev == len(levels) - 1:
+        if coarse_dense:
+            return _dense_solve(L, b)
+        return _chebyshev(L["matvec"], L["dinv"], b, torch.zeros_like(b),
+                          L["lmax"], 24)
+    x = _chebyshev(L["matvec"], L["dinv"], b, torch.zeros_like(b),
+                   L["lmax"], degree)
+    r = torch.where(L["ess"], 0.0, b - L["matvec"](x))
+    rc = _restrict(r.reshape(3, L["nn"]), L["grid"]).reshape(-1)
+    rc = torch.where(levels[lev + 1]["ess"], 0.0, rc)
+    zc = _cycle(levels, lev + 1, rc, degree, coarse_dense)
+    zf = _prolong(zc.reshape(3, levels[lev + 1]["nn"]),
+                  L["grid"]).reshape(-1)
+    x = x + torch.where(L["ess"], 0.0, zf)
+    return _chebyshev(L["matvec"], L["dinv"], b, x, L["lmax"], degree)

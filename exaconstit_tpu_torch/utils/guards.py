@@ -40,3 +40,38 @@ def check_finite(layer, **tensors):
                 f"{name} has {int(bad.sum())} of {t.numel()} "
                 f"(first at flat index {int(bad.flatten().nonzero()[0])})")
 
+
+
+class FiniteTally:
+    """The non-finite entries of each layer's tensors, summed over the
+    element chunks of one setup and read once by ``check``: it names the
+    first layer (in the order the layers were added) that is not finite,
+    whatever the chunk count.  Off, it touches no tensor."""
+
+    def __init__(self, on):
+        self.on = on
+        self.counts = {}  # layer -> {name: [non-finite count, size]}
+
+    def add(self, layer, **tensors):
+        if not self.on:
+            return
+        names = self.counts.setdefault(layer, {})
+        for name, t in tensors.items():
+            if t is None:
+                continue
+            bad = (~torch.isfinite(t)).sum()
+            if name in names:
+                names[name][0] = names[name][0] + bad
+                names[name][1] += t.numel()
+            else:
+                names[name] = [bad, t.numel()]
+
+    def check(self):
+        """Raise ``NonFiniteError`` for the first layer holding a nan or
+        an inf (one device read per tensor)."""
+        for layer, names in self.counts.items():
+            for name, (bad, size) in names.items():
+                if int(bad):
+                    raise NonFiniteError(
+                        f"non-finite values (nan/inf) out of the {layer} "
+                        f"layer: {name} has {int(bad)} of {size}")

@@ -57,9 +57,11 @@ def _one_thread(monkeypatch):
     torch.set_num_threads(n)
 
 
-def port_problem(ncuts, precond="auto", ea_asm_f32=None):
+def port_problem(ncuts, precond="auto", ea_asm_f32=None, device="cpu",
+                 **system):
     """The port's twin of ``_tiny_problem``: same options, mesh, seeded
-    orientations and uniaxial BCs, in host (point-major) arrays."""
+    orientations and uniaxial BCs, in host (point-major) arrays
+    (``system``: more ``MechSystem`` arguments)."""
     opt = T_OPT.ExaOptions()
     opt.mech_type = T_OPT.MechType.EXACMECH
     opt.xtal_type = T_OPT.XtalType.FCC
@@ -70,8 +72,8 @@ def port_problem(ncuts, precond="auto", ea_asm_f32=None):
     opt.krylov_precond = precond
     mesh = make_cartesian_mesh(ncuts, [1.0, 1.0, 1.0], order=1)
     model = build_model(opt, graft._VOCE_PROPS)
-    system = MechSystem(opt, mesh, model, device="cpu",
-                        ea_asm_f32=ea_asm_f32)
+    system = MechSystem(opt, mesh, model, device=device,
+                        ea_asm_f32=ea_asm_f32, **system)
     rng = np.random.default_rng(0)
     q = rng.normal(size=(mesh.num_elems, 4))
     q /= np.linalg.norm(q, axis=1, keepdims=True)
