@@ -16,8 +16,13 @@ the additional averages, checkpoint/restart and visualization dumps.
 Everything runs eagerly; each Newton iteration, PCG iteration and
 dogleg iteration reads its stop test on the host.  As in the reference,
 ``EXACONSTIT_TPU_REGIONS`` turns on the region timings
-(``utils/profiling.py``) and ``EXACONSTIT_CHECK_NUMERICS`` the layer
-guards (``utils/guards.py``), both read when a ``MechSystem`` is built.
+(``utils/profiling.py``: the reference's three regions, the port's spans
+of the corrector, the averages, the Newton solve, the point update, the
+operator build and apply, and its counters of host reads and Krylov and
+point-solve iterations, timed by CUDA events; the card is waited for
+once a Newton solve, when its stats take the regions' delta) and
+``EXACONSTIT_CHECK_NUMERICS`` the layer guards (``utils/guards.py``),
+both read when a ``MechSystem`` is built.
 
 Spread over shards (``Simulation(shards=...)``, the CLI's ``--shards``
 or one shard per rank of a process group) a run takes, as the
@@ -53,7 +58,7 @@ from .models.ecmech import build_model
 from .models.umat import UmatLibrary, UmatModel
 from .parallel import sharding
 from .parallel.replicated import ReplicatedMap
-from .solvers import gmg
+from .solvers import dogleg_cuda, gmg
 from .solvers.krylov import gmres, minres, pcg, pcg_refined
 from .utils.guards import (FiniteTally, check_finite,
                            numerics_checks_enabled)
@@ -310,8 +315,8 @@ class MechSystem:
         self.rebuild_krylov(os.environ.get("EXACONSTIT_PRECOND",
                                            opt.krylov_precond))
         self.last_newton_stats = {}
-        # host wall time per region (opt-in: it synchronises the device
-        # at every boundary), and the layer guards
+        # region and span times and the counters (opt-in), and the layer
+        # guards
         self.regions = Regions() if os.environ.get(
             "EXACONSTIT_TPU_REGIONS") else None
         self.check_numerics = numerics_checks_enabled()
@@ -469,9 +474,19 @@ class MechSystem:
                     tally):
         """(force, operator data, its local diagonal, stress, end state,
         point solution) of the elements of ``el_x`` (all or a chunk)."""
-        stress, state_end, c6, x_sol = self._point_update(
-            el_x, el_v, state, dt, nsub, x_warm, warm_ok, True, tally)
-        c6_q = c6.reshape(6, 6, self.nq, -1)
+        stress, state_end, c6, x_sol = self.span(
+            "setup.point_update", self._point_update, el_x, el_v, state, dt,
+            nsub, x_warm, warm_ok, True, tally,
+            counting=dogleg_cuda.KERNEL.counting)
+        k_data, dloc = self.span("setup.operator_build", self._build_operator,
+                                 el_x, c6.reshape(6, 6, self.nq, -1), dt)
+        tally.add("operator", operator_data=k_data)
+        return (self._force(el_x, stress), k_data, dloc, stress, state_end,
+                x_sol)
+
+    def _build_operator(self, el_x, c6_q, dt):
+        """(operator data, its local diagonal): the PA tensor, or the EA
+        or B-bar blocks, of the elements of ``el_x``."""
         nen = self.fes.ref.nnodes
         args = (el_x, self.dshape, self.qwts, c6_q, dt)
         if self.pa:
@@ -493,14 +508,13 @@ class MechSystem:
                 # of the diagonal, so the f64 blocks are not kept alive)
                 dloc = dloc.clone()
                 k_data = k_data.to(self.ea_dtype)
-        tally.add("operator", operator_data=k_data)
-        return (self._force(el_x, stress), k_data, dloc, stress, state_end,
-                x_sol)
+        return k_data, dloc
 
     def _resid_core(self, el_x, el_v, state, x_warm, dt, nsub, warm_ok,
                     tally):
-        stress = self._point_update(el_x, el_v, state, dt, nsub, x_warm,
-                                    warm_ok, False, tally)[0]
+        stress = self.span("setup.point_update", self._point_update, el_x,
+                           el_v, state, dt, nsub, x_warm, warm_ok, False,
+                           tally, counting=dogleg_cuda.KERNEL.counting)[0]
         return (self._force(el_x, stress),)
 
     def setup(self, v, x_beg, state, dt, ess, advance_coords, nsub, x_warm,
@@ -542,7 +556,8 @@ class MechSystem:
 
     def grad_matvec(self, k_data, x, ess):
         """y = K x with essential-dof identity rows and columns."""
-        y = self.apply_k(k_data, torch.where(ess, 0.0, x))
+        y = self.span("operator.apply", self.apply_k, k_data,
+                      torch.where(ess, 0.0, x))
         return torch.where(ess, x, y)
 
     def dot(self, a, b):
@@ -587,6 +602,7 @@ class MechSystem:
         Jacobi, or MINRES or GMRES in f64 with Jacobi; on an f32 run each
         solver in plain f32.  Returns (x, iters, converged, rel_red)."""
         opt = self.opt
+        count = None if self.regions is None else self.regions.count
         dinv = 1.0 / diag
 
         def matvec(x):
@@ -597,9 +613,9 @@ class MechSystem:
 
         args = (b, opt.krylov_rel_tol, opt.krylov_abs_tol, opt.krylov_iter)
         if opt.solver == KrylovSolver.MINRES:
-            return minres(matvec, precond, *args)
+            return minres(matvec, precond, *args, count=count)
         if opt.solver == KrylovSolver.GMRES:
-            return gmres(matvec, precond, *args)
+            return gmres(matvec, precond, *args, count=count)
         if b.dtype != torch.float64 or not self.mixed_krylov:
             if self.gmg_meta is not None:
                 levels = gmg.build_hierarchy(self.gmg_meta, k_data, ess,
@@ -609,7 +625,7 @@ class MechSystem:
                 def precond(v):
                     return gmg.v_cycle(levels, v, coarse_dense=cd)
 
-            return pcg(matvec, precond, *args, dot=self.dot)
+            return pcg(matvec, precond, *args, dot=self.dot, count=count)
         f32 = torch.float32
         k32 = k_data.to(f32)
         dinv32 = dinv.to(f32)
@@ -633,7 +649,7 @@ class MechSystem:
                                    coarse_dense=cd).to(b.dtype)
 
         return pcg_refined(matvec, precond, matvec32, precond32, *args,
-                           dot=self.dot)
+                           dot=self.dot, count=count)
 
     def _timed(self, name, fn, *args):
         """fn(*args), recorded as region ``name`` when region timing is
@@ -643,6 +659,18 @@ class MechSystem:
             return fn(*args)
         with self.regions.region(name, self.device):
             return fn(*args)
+
+    def span(self, name, fn, *args, counting=None):
+        """fn(*args), recorded as the port's span ``name`` when region
+        timing is on, and then inside ``counting(self.regions)`` too where
+        that is given."""
+        if self.regions is None:
+            return fn(*args)
+        with self.regions.span(name, self.device):
+            if counting is None:
+                return fn(*args)
+            with counting(self.regions):
+                return fn(*args)
 
     def vol_avg(self, values_q, el_x, divide=True):
         """Volume-weighted average (or, without ``divide``, the volume
@@ -691,8 +719,24 @@ class MechSystem:
         NR takes the full step and falls back to the 3-point quadratic
         line search when the step fails to halve the residual; NRLS
         always line-searches.  The converged point-solve solution of the
-        last setup warm-starts the next one (with ``warm_start``)."""
+        last setup warm-starts the next one (with ``warm_start``).  With
+        region timing on it is span ``newton.solve`` and counts its
+        residual-norm reads (``host_reads``), and its stats
+        (``last_newton_stats``) also hold ``spans`` and ``counters``,
+        ``Regions.delta()`` taken after the span closes: what the regions
+        recorded since the previous solve's stats were taken (this solve's
+        own span, and the corrector and the rest of the time loop since
+        the previous solve).  Taking it waits for the card once a solve."""
+        out = self.span("newton.solve", self._newton_solve, v, x_beg, state,
+                        dt, ess_mask, verbose)
+        if self.regions is not None:
+            spans, counters = self.regions.delta()
+            self.last_newton_stats.update(spans=spans, counters=counters)
+        return out
+
+    def _newton_solve(self, v, x_beg, state, dt, ess_mask, verbose):
         opt = self.opt
+        count = None if self.regions is None else self.regions.count
         ess = self._ess_flat(ess_mask)
         nsub = self.compute_nsub(dt)
         xw = torch.zeros((8, self.npts), dtype=state.dtype,
@@ -708,7 +752,10 @@ class MechSystem:
                                x_beg, state, dt, ess, nsub, xw, ok)
 
         def norm(r):
-            return float(self.norm(r))
+            n = float(self.norm(r))
+            if count is not None:
+                count("host_reads")
+            return n
 
         out = do_setup(v)
         r, k_data, diag, stress, state_end = out[:5]
@@ -815,7 +862,8 @@ class MechSystem:
                          device=self.device)
         r, k_data, diag = self.setup(v_prev, x_beg, state, dt, ess, False,
                                      self.compute_nsub(dt), xw, False)[:3]
-        y = torch.where(ess, 0.0, self.apply_k(k_data, delta)) + r
+        y = torch.where(ess, 0.0, self.span("operator.apply", self.apply_k,
+                                            k_data, delta)) + r
         c = self.krylov_solve(k_data, diag, y, ess)[0]
         return v_prev - c
 
@@ -1047,14 +1095,16 @@ class Simulation:
         sysm = self.system
         x_sub = None
         subdivided = 1
+        self._solves = []
         if ti in self.update_steps:
             if verbose and ti != 1:
                 print(f"Changing boundary conditions this step: {ti}")
             v_prev = self.v
             self.cur_bcs = self.bc_steps[ti]
             self.update_velocity()
-            self.v = sysm.solve_init(v_prev, self.v, self.x_beg, self.state,
-                                     dt, self.cur_bcs.ess_mask)
+            self.v = sysm.span("time_loop.corrector", sysm.solve_init, v_prev,
+                               self.v, self.x_beg, self.state, dt,
+                               self.cur_bcs.ess_mask)
         self.update_velocity()
 
         if opt.dt_auto:
@@ -1063,9 +1113,8 @@ class Simulation:
             v_save = self.v
             attempts = 0
             while True:
-                v, stress, state_end, conv, nit, _ = sysm.newton_solve(
-                    self.v, self.x_beg, self.state, dt,
-                    self.cur_bcs.ess_mask, verbose)
+                v, stress, state_end, conv, nit, _ = self._newton(
+                    self.v, self.x_beg, self.state, dt, verbose)
                 if conv or attempts >= 2:
                     break
                 print("WARNING: Solution did not converge; decreasing dt")
@@ -1077,9 +1126,8 @@ class Simulation:
                 self.dt_auto_cur = max(dt * factor, opt.dt_min)
                 self._append_file(opt.dt_file, f"{dt:.12g}\n")
         else:
-            v, stress, state_end, conv, nit, _ = sysm.newton_solve(
-                self.v, self.x_beg, self.state, dt, self.cur_bcs.ess_mask,
-                verbose)
+            v, stress, state_end, conv, nit, _ = self._newton(
+                self.v, self.x_beg, self.state, dt, verbose)
         if not conv and not opt.dt_auto:
             # ExaConstit aborts here; as the JAX package does, subdivide
             # the step and compose the sub-solves instead (essential velocities are rates, so
@@ -1097,9 +1145,11 @@ class Simulation:
             raise RuntimeError("Newton Solver did not converge.")
 
         # Newton and Krylov counts of the last solve, the first solve's
-        # NR count, and the number of sub-solves the step took
+        # NR count, the number of sub-solves the step took, and every
+        # solve's counts (retries and sub-solves included)
         self.step_stats.append(dict(sysm.last_newton_stats, first_nr=nit,
-                                    subdivided=subdivided))
+                                    subdivided=subdivided,
+                                    solves=self._solves))
         self.v = v
         self.x_cur = x_sub if x_sub is not None else self.x_beg + dt * v
         # state_prev is the state the step began from: the plastic
@@ -1114,17 +1164,25 @@ class Simulation:
     def _solve_subdivided(self, dt, nsub, verbose):
         """One scheduled step as ``nsub`` composed sub-solves; commits
         nothing, returns (v, stress, state_end, x_end) or None."""
-        sysm = self.system
         v, x, state = self.v, self.x_beg, self.state
         dts = dt / nsub
         for _ in range(nsub):
-            v, stress, state_end, conv, _, _ = sysm.newton_solve(
-                v, x, state, dts, self.cur_bcs.ess_mask, verbose)
+            v, stress, state_end, conv, _, _ = self._newton(
+                v, x, state, dts, verbose)
             if not conv:
                 return None
             x = x + dts * v
             state = state_end
         return v, stress, state, x
+
+    def _newton(self, v, x, state, dt, verbose):
+        """The system's Newton solve under the current BCs, its counts
+        kept in the step's list of solves."""
+        sysm = self.system
+        out = sysm.newton_solve(v, x, state, dt, self.cur_bcs.ess_mask,
+                                verbose)
+        self._solves.append(dict(sysm.last_newton_stats))
+        return out
 
     def _append_file(self, name, text):
         # every rank computes the averages (collectively); rank 0 writes
@@ -1136,7 +1194,10 @@ class Simulation:
     def write_averages(self):
         """Append this step's row to the average stress file and, with
         ``additional_avgs``, to the plastic work, deformation gradient and
-        plastic deformation rate files."""
+        plastic deformation rate files (span ``time_loop.averages``)."""
+        self.system.span("time_loop.averages", self._write_averages)
+
+    def _write_averages(self):
         opt = self.opt
         sysm = self.system
 
