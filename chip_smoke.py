@@ -12,7 +12,9 @@ failed check exits non-zero with no result line:
 1. device: the card's name and power limit (nvidia-smi), TF32 off;
 2. build: nvcc builds the dogleg kernel from csrc/; registers and spills
    from -Xptxas -v, resident blocks per SM from the occupancy query (no
-   spills, and at least 16 resident warps per SM);
+   spills, and at least 16 resident warps per SM); then the PA apply's
+   kernels (csrc/pa_apply.cu): registers, local bytes and resident
+   blocks of each, no spills;
 3. the kernel against its plain PyTorch version on seeded inputs at
    884,736 points (a 48^3 mesh x 8 quadrature points) and 262,144
    (32^3): converged flags, solutions (atol 2e-5), residuals, inactive
@@ -57,8 +59,12 @@ failed check exits non-zero with no result line:
    index scatter uses no atomics); then, with the kernel's launch count
    reset just before the run and read just after, per step the seconds,
    Newton and Krylov counts and sigma_zz, the region timings of the
-   setups, line searches and Krylov solves, the PA applies, peak memory,
-   and one PA apply timed alone in f32 and f64;
+   setups, line searches and Krylov solves, the PA applies, peak memory;
+   and at the first setup, in f32 and f64, the PA apply's kernel pair
+   (csrc/pa_apply.cu) against its plain version (max gap over max |y|
+   1e-5 and 1e-12, two calls bitwise equal, the node pass bitwise the
+   plain scatter), its device time beside its bytes bound, ``apply_k``'s
+   time a call and the plain version's;
 10. (``--only configs``) CUDA against CPU at 4^3 for 2 steps, average
    stress to rel 1e-6 (f32: rel 1e-4), for each configuration the earlier
    phases do not run: a mesh file with EA, PA, B-bar, GMRES, MINRES, the
@@ -229,6 +235,8 @@ MTSDD_DTS = (0.01, 0.01)
 # across yield) passed only as 8 sub-solves, at the last retry; its second
 # was cut to keep the smoke inside its time limit on a slow host
 MESH_PA_DTS = (0.1,)
+# the PA kernels against their plain version, over the largest |y|
+PA_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 # The f32 path: ten elastic steps to phase 5's first output time, t = 0.1,
 # where sigma_zz compares with phase 5's f64 value.  At dt 0.1 its first
 # Newton solve stalls near 0.7 of its first residual and then grows to 7x
@@ -318,6 +326,7 @@ SETUP_NAMES = ("residual", "EA blocks", "diagonal", "stress", "end state",
 BCC_STAGE_SIZE = 262_144
 TPU_KERNEL = "exaconstit_tpu/solvers/dogleg_pallas.py:211"
 KERNEL_SOURCE = "exaconstit_tpu_torch/csrc/dogleg_voce.cu"
+PA_SOURCE = "exaconstit_tpu_torch/csrc/pa_apply.cu"
 # NVIDIA H100 SXM data sheet: f32 outside the tensor cores, HBM3
 F32_OPS_PER_S = 67e12
 BYTES_PER_S = 3.35e12
@@ -461,6 +470,19 @@ def phase_build():
     check(spills and not any(spills), f"the kernel spills: {ptxas}")
     check(warps >= MIN_WARPS_PER_SM,
           f"{warps} resident warps per SM < {MIN_WARPS_PER_SM}")
+    from exaconstit_tpu_torch.fem.pa_apply_cuda import KERNEL as PA
+    t0 = time.perf_counter()
+    path = PA.build()
+    secs = time.perf_counter() - t0
+    logf = path.with_suffix(".log")
+    pa_log = logf.read_text() if logf.exists() else PA.build_log
+    spills = [int(v) for v in re.findall(r"(\d+) bytes spill", pa_log)]
+    log(f"[2 build] {secs:.2f} s -> {path.name}; "
+        + "; ".join(f"{name}: {i['registers']} registers, "
+                    f"{i['local_bytes']} local bytes, {i['blocks_per_sm']} "
+                    f"blocks of {i['threads']} per SM"
+                    for name, i in PA.build_info().items()))
+    check(spills and not any(spills), "the PA kernels spill")
     return info
 
 
@@ -971,25 +993,80 @@ def check_setup_bitwise(toml):
                           second):
         check(torch.equal(a, b), f"two calls of the first setup give "
               f"different {name}s")
-    pa_ms = {}
-    with torch.inference_mode():
-        x = torch.where(ess, 0.0, sim.v + 1.0)
-        for dtype in (torch.float32, torch.float64):
-            k = first[1].to(dtype)
-            pa_ms[str(dtype)[6:]] = cuda_time_ms(
-                lambda: sysm.apply_k(k, x.to(dtype)), reps=5)
     log(f"[9 mesh PA 32^3] two calls of the first setup: residual, PA "
         f"tensor {tuple(first[1].shape)} and diagonal bitwise equal "
-        f"(index map of valence {sysm.emap.valence}); one PA apply "
-        f"(gather, apply, scatter) {pa_ms['float32']:.3f} ms in f32, "
-        f"{pa_ms['float64']:.3f} ms in f64")
+        f"(index map of valence {sysm.emap.valence})")
+    with torch.inference_mode():
+        x = torch.where(ess, 0.0, sim.v + 1.0)
+        pa_ms = {str(dtype)[6:]: pa_apply_kernel(sysm, first[1].to(dtype),
+                                                 x.to(dtype))
+                 for dtype in (torch.float32, torch.float64)}
     del sim, sysm, first, second
     return pa_ms
+
+
+def kernel_device_ms(fn, prefix, calls=20):
+    """Device ms per call of ``fn`` in the kernels whose names start with
+    ``prefix``, from a profiler trace of ``calls`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if prefix in e.key) / 1e3 / calls
+
+
+def pa_apply_kernel(sysm, k, x):
+    """The PA apply's kernel pair (``csrc/pa_apply.cu``) on the mesh-file
+    system against its plain version: the largest gap over the largest
+    |y| (``PA_TOL``), two calls bitwise equal, the node pass bitwise the
+    plain scatter of the kernel's element vectors; the kernels' device
+    time per apply (element and node pass, profiler) beside the bytes
+    bound, ``apply_k`` per call (CUDA events: with the host's part) and
+    the plain version's."""
+    from exaconstit_tpu_torch.fem import pa_apply_cuda as pc
+    dtype, emap = x.dtype, sysm.emap
+    dsh = sysm.dshape_as(dtype)
+    tag = f"[9 mesh PA 32^3 {str(dtype)[6:]}]"
+    check(sysm.pa_kernel, "the mesh-file PA system must take the kernels")
+    before = pc.KERNEL.launches
+    y = sysm.apply_k(k, x)
+    check(pc.KERNEL.launches == before + 1, "apply_k did not launch the "
+          "PA kernels")
+    want = pc.pa_apply_reference(k, dsh, x, emap)
+    y2, el_y = pc.KERNEL.launch(k, dsh, x, emap.conn_t, emap.table)
+    err = float((y - want).abs().max() / want.abs().max())
+    check(err <= PA_TOL[dtype], f"{tag} kernel against plain {err:.3e} > "
+          f"{PA_TOL[dtype]:.0e} of max |y|")
+    check(torch.equal(y, y2), f"{tag} two kernel applies differ")
+    check(torch.equal(y, emap.scatter_add(el_y)), f"{tag} the node pass is "
+          "not the plain scatter of the element vectors")
+    nbytes = (k.numel() * k.element_size() + 2 * x.numel() * x.element_size()
+              + (emap.conn_t.numel() + emap.table.numel()) * 8)
+    bound_ms = 1e3 * nbytes / BYTES_PER_S
+    run = lambda: sysm.apply_k(k, x)  # noqa: E731
+    out = dict(kernel_ms=kernel_device_ms(run, "pa_element_kernel"),
+               node_ms=kernel_device_ms(run, "pa_node_kernel"),
+               apply_ms=cuda_time_ms(run, reps=5), bound_ms=bound_ms,
+               plain_ms=cuda_time_ms(
+                   lambda: pc.pa_apply_reference(k, dsh, x, emap), reps=5),
+               max_rel_err=err)
+    dev_ms = out["kernel_ms"] + out["node_ms"]
+    log(f"{tag} kernels {dev_ms:.4f} ms (element {out['kernel_ms']:.4f}, "
+        f"node {out['node_ms']:.4f}) against the bytes bound "
+        f"{bound_ms:.4f} ms ({nbytes:.4e} bytes), share "
+        f"{bound_ms / dev_ms:.3f}; apply_k {out['apply_ms']:.4f} ms a call; "
+        f"plain {out['plain_ms']:.4f} ms; max gap {err:.3e} of max |y|")
+    return out
 
 
 def phase_mesh_pa(workdir):
     """The Voce case from an MFEM mesh file with PA assembly and Jacobi-
     PCG at full width, through the CLI entry point on the card."""
+    from exaconstit_tpu_torch.fem import pa_apply_cuda as pc
     from exaconstit_tpu_torch.solvers import dogleg_cuda as dc
     toml = write_case((32, 32, 32), MESH_PA_DTS, workdir, "voce",
                       mesh_file=True, assembly="PA")
@@ -998,8 +1075,10 @@ def phase_mesh_pa(workdir):
     torch.cuda.reset_peak_memory_stats()
     with env(EXACONSTIT_TPU_REGIONS="1"):
         dc.KERNEL.launches = 0
+        pa_before = pc.KERNEL.launches
         rec, wall = run_cli(toml, run_dir)
         launches = dc.KERNEL.launches
+        pa_launches = pc.KERNEL.launches - pa_before
     peak = torch.cuda.max_memory_allocated()
     sim = rec.sim
     stress = np.loadtxt(os.path.join(run_dir, "avg_stress.txt"), ndmin=2)
@@ -1009,6 +1088,8 @@ def phase_mesh_pa(workdir):
     check(len(sim.step_stats) == nsteps, "a step of the mesh PA path did "
           "not finish")
     check(launches > 0, "the mesh PA path never launched the dogleg kernel")
+    check(pa_launches == rec.applies, f"{pa_launches} PA kernel applies for "
+          f"{rec.applies} PA applies")
     for k, (st, secs) in enumerate(zip(sim.step_stats, sim.step_times)):
         kr = st["krylov_iters"]
         retry = (f"first solve failed after NR {st['first_nr']}, "
@@ -1019,10 +1100,11 @@ def phase_mesh_pa(workdir):
             f"(mean {np.mean(kr) if kr else 0:.1f}), szz {stress[k, 2]:.6g}")
     log(f"[9 mesh PA 32^3] {sim.system.npts} points, precond "
         f"{sim.system.precond_kind}, wall {wall:.2f} s for {nsteps} steps; "
-        f"{rec.applies} PA applies; kernel launches {launches}, peak memory "
-        f"{peak / 2**30:.3f} GiB")
+        f"{rec.applies} PA applies, each a PA kernel apply; dogleg kernel "
+        f"launches {launches}, peak memory {peak / 2**30:.3f} GiB")
     region_split("9 mesh PA 32^3", sim, wall)
-    return dict(launches=launches, wall=wall, pa_ms=pa_ms)
+    return dict(launches=launches, wall=wall, pa_ms=pa_ms,
+                pa_launches=pa_launches)
 
 
 def pcg_floor(toml, label, dt):
@@ -3046,7 +3128,18 @@ def main(argv=None):
         "launches_per_make_step_64_whole": large["whole"]["launches"],
         "make_step_64_whole_ms_per_launch_median":
             large["whole"]["median_ms"],
-        "launches_per_make_step_96": large["huge"]["launches"]}]}))
+        "launches_per_make_step_96": large["huge"]["launches"]}, {
+        # the PA apply's kernel pair at 32^3 in f32 (f64 in PERF.md);
+        # library_ms: no single PyTorch call computes this apply
+        "name": "pa_apply", "route": "cuda", "source": PA_SOURCE,
+        "replaces": None, "launches": mesh_pa["pa_launches"],
+        "max_rel_err": mesh_pa["pa_ms"]["float32"]["max_rel_err"],
+        "ms": (mesh_pa["pa_ms"]["float32"]["kernel_ms"]
+               + mesh_pa["pa_ms"]["float32"]["node_ms"]),
+        "plain_ms": mesh_pa["pa_ms"]["float32"]["plain_ms"],
+        "bound_ms": mesh_pa["pa_ms"]["float32"]["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "apply_ms": mesh_pa["pa_ms"]["float32"]["apply_ms"]}]}))
     log(f"[16 total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -47,6 +47,7 @@ from .config.options import (Assembly, ExaOptions, IntegrationType,
                              KrylovSolver, MechType, MeshType, NLSolver,
                              OriType, parse_options)
 from .fem import operators as ops
+from .fem import pa_apply_cuda
 from .fem.geometry import (adjugate_3x3_cm, det_3x3_cm, grad_calc_cm,
                            jacobians_cm)
 from .fem.space import FESpace, IndexMap, StructuredMap
@@ -201,13 +202,17 @@ class MechSystem:
     quadrature-point fields (k, nq*ne) with point index q*ne + e.
 
     The element map is the strided ``StructuredMap`` on a voxel brick
-    and the ``IndexMap`` on any other mesh.  The operator is EA (which
-    also serves FULL), PA, or B-bar with EA blocks (B-bar forces EA, as
-    the reference has no PA gradient for it).  PA, B-bar and a model
-    without the component-major point solve (UMAT, and an ECMech model
-    whose settings only the per-point engine covers, which runs through
-    its point-major ``model_setup``) are the reference's point-major
-    half (``point_major``), whose numbers the port keeps:
+    and the ``IndexMap`` on any other mesh; on an order-1 ``IndexMap``
+    the PA apply is ``fem/pa_apply_cuda.pa_apply`` (the hand-written
+    kernel pair on the card, the plain version on the CPU), and every
+    other map keeps the plain contraction and its own scatter.  The
+    operator is EA (which also serves FULL), PA, or B-bar with EA blocks
+    (B-bar forces EA, as the reference has no PA gradient for it).  PA,
+    B-bar and a model without the component-major point solve (UMAT, and
+    an ECMech model whose settings only the per-point engine covers,
+    which runs through its point-major ``model_setup``) are the
+    reference's point-major half (``point_major``), whose numbers the
+    port keeps:
     the point solve starts cold at every setup, and the operator is
     built in f64 even where the point solve is mixed precision.
     Elsewhere ``ea_asm_f32`` builds the 24x24 EA blocks in f32 (default:
@@ -287,6 +292,12 @@ class MechSystem:
                                  device=self.device)
         self.dshape = torch.as_tensor(self.fes.ref.dshape, dtype=self.dtype,
                                       device=self.device)
+        self._dshapes = {self.dtype: self.dshape}
+        # the PA apply's kernel pair: an order-1 mesh on one device's
+        # index map (the strided and the sharded maps keep their scatter)
+        self.pa_kernel = self.pa and isinstance(self.emap, IndexMap) \
+            and self.fes.ref.dshape.shape == (pa_apply_cuda.NQ,
+                                              pa_apply_cuda.NEN, 3)
         self.qwts = torch.as_tensor(self.fes.ref.qwts, dtype=self.dtype,
                                     device=self.device)
         self.nn = self.fes.num_nodes
@@ -544,15 +555,25 @@ class MechSystem:
         self._check("residual", residual=r)
         return r
 
+    def dshape_as(self, dtype):
+        """The reference shape gradients in ``dtype``, cast once."""
+        if dtype not in self._dshapes:
+            self._dshapes[dtype] = self.dshape.to(dtype)
+        return self._dshapes[dtype]
+
     def apply_k(self, k_data, x):
-        """K x with the operator data (promoted to x's dtype)."""
-        el_u = self.emap.gather(x)
+        """K x with the operator data (promoted to x's dtype); on an
+        order-1 index map the PA apply is ``pa_apply_cuda.pa_apply`` (the
+        kernel pair on the card, the plain version on the CPU)."""
+        k_data = k_data.to(x.dtype)
+        if self.pa_kernel:
+            return pa_apply_cuda.pa_apply(k_data, self.dshape_as(x.dtype), x,
+                                          self.emap, self.regions)
         if self.pa:
-            el_y = ops.apply_pa_gradient_cm(k_data.to(x.dtype),
-                                            self.dshape.to(x.dtype), el_u)
-        else:
-            el_y = ops.apply_ea_gradient_cm(k_data.to(x.dtype), el_u)
-        return self.emap.scatter_add(el_y)
+            return pa_apply_cuda.pa_apply_reference(
+                k_data, self.dshape_as(x.dtype), x, self.emap)
+        return self.emap.scatter_add(ops.apply_ea_gradient_cm(
+            k_data, self.emap.gather(x)))
 
     def grad_matvec(self, k_data, x, ess):
         """y = K x with essential-dof identity rows and columns."""

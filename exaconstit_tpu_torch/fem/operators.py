@@ -134,10 +134,13 @@ def _pa_geometry(el_x_cm, dshape, qwts, dt):
 
 def assemble_pa_gradient_cm(el_x_cm, dshape, qwts, c6_cm, dt):
     """The PA tensor D (3, 3, 3, 3, nq, ne), D[i,s,k,t] = (w dt/detJ)
-    sum_{j,l} adj[s,j] C4[i,j,k,l] adj[t,l]."""
+    sum_{j,l} adj[s,j] C4[i,j,k,l] adj[t,l], contiguous (element
+    fastest: the einsum leaves it point-major, and the scaling writes it
+    out in this order at no extra memory)."""
     adj, scale = _pa_geometry(el_x_cm, dshape, qwts, dt)
     t = torch.einsum("sjqe,ijklqe->isklqe", adj, c6_to_c4_cm(c6_cm))
-    return torch.einsum("isklqe,tlqe->isktqe", t, adj) * scale
+    d = torch.einsum("isklqe,tlqe->isktqe", t, adj)
+    return torch.mul(d, scale, out=d.new_empty(d.shape))
 
 
 def apply_pa_gradient_cm(d_pa, dshape, el_u_cm):

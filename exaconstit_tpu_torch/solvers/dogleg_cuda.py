@@ -23,11 +23,6 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
 import dataclasses
@@ -37,12 +32,12 @@ import torch
 
 from ..models import evptn_cm as cm
 from ..models.kinetics import VocePL, primal
+from ..utils import nvcc
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 SOURCE = PKG_DIR / "csrc" / "dogleg_voce.cu"
-BUILD_DIR = PKG_DIR / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+BUILD_DIR = nvcc.BUILD_DIR
+NVCC_FLAGS = nvcc.FLAGS
 NSLIP = 12
 _PARAM_FLOATS = NSLIP * 5 + 8 * NSLIP
 # dogleg_voce_f32's C arguments: 12 tensors (7 f32 inputs, the active
@@ -88,14 +83,7 @@ def stage_work(n_points, iters_sum):
 
 def nvcc_command(out_path) -> list:
     """The nvcc command line that builds the kernel library."""
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        from torch.utils.cpp_extension import CUDA_HOME
-        if CUDA_HOME is None:
-            raise RuntimeError("nvcc not found: the CUDA toolkit is needed "
-                               "to build the dogleg kernel")
-        nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
-    return [nvcc, *NVCC_FLAGS, "-o", str(out_path), str(SOURCE)]
+    return nvcc.nvcc_command(SOURCE, out_path, NVCC_FLAGS)
 
 
 class DoglegKernel:
@@ -128,30 +116,12 @@ class DoglegKernel:
         self.regions.count_on_device("dogleg.iterations", iters)
 
     def library_path(self) -> Path:
-        flags = " ".join(NVCC_FLAGS)
-        key = hashlib.sha256(SOURCE.read_bytes() + flags.encode()).hexdigest()
-        return BUILD_DIR / f"dogleg_voce_{key[:16]}.so"
+        return nvcc.library_path(SOURCE, NVCC_FLAGS)
 
     def build(self) -> Path:
         """Compile the kernel unless this source is already built."""
-        path = self.library_path()
-        if path.exists():
-            return path
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            proc = subprocess.run(nvcc_command(tmp),
-                                  capture_output=True, text=True)
-            self.build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed to build {SOURCE.name}:\n{self.build_log}")
-            os.replace(tmp, path)
-            path.with_suffix(".log").write_text(self.build_log)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+        path, log = nvcc.build(SOURCE, NVCC_FLAGS)
+        self.build_log = log or self.build_log
         return path
 
     def lib(self):

@@ -15,9 +15,10 @@ Port of ``exaconstit_tpu.utils.profiling``:
   one): ``host_reads`` (the blocking scalar reads of the Newton and
   Krylov stop tests), ``krylov.iterations``, ``dogleg.points`` and
   ``dogleg.iterations`` (the point-solve stage's lanes and the iterations
-  they report).  ``delta()`` gives what the spans and counters gained
-  since its last call (``MechSystem.newton_solve`` puts it in each
-  solve's stats).
+  they report), and ``operator.pa_kernel_applies`` (the PA applies that
+  ran the kernel pair of ``fem/pa_apply_cuda.py``).  ``delta()`` gives
+  what the spans and counters gained since its last call
+  (``MechSystem.newton_solve`` puts it in each solve's stats).
   On a CUDA device a region or span records a CUDA timing event on the
   current stream at each end and does not wait for the card; the pairs
   are resolved (one synchronize, then ``elapsed_time``) when ``totals``,
