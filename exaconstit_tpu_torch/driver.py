@@ -18,9 +18,10 @@ dogleg iteration reads its stop test on the host.  As in the reference,
 ``EXACONSTIT_TPU_REGIONS`` turns on the region timings
 (``utils/profiling.py``: the reference's three regions, the port's spans
 of the corrector, the averages, the Newton solve, the point update, the
-operator build and apply, and its counters of host reads and Krylov and
-point-solve iterations, timed by CUDA events; the card is waited for
-once a Newton solve, when its stats take the regions' delta) and
+operator build and apply and the GMG V-cycle, and its counters of host
+reads and Krylov and point-solve iterations, timed by CUDA events; the
+card is waited for once a Newton solve, when its stats take the
+regions' delta) and
 ``EXACONSTIT_CHECK_NUMERICS`` the layer guards (``utils/guards.py``),
 both read when a ``MechSystem`` is built.
 
@@ -621,9 +622,12 @@ class MechSystem:
         """PCG in mixed precision (f32 inner, f64 replay; plain PCG in the
         run's dtype without ``mixed_krylov``) with the GMG V-cycle or
         Jacobi, or MINRES or GMRES in f64 with Jacobi; on an f32 run each
-        solver in plain f32.  Returns (x, iters, converged, rel_red)."""
+        solver in plain f32.  With region timing on the V-cycle's spans
+        and counter are recorded (``solvers/gmg.py``).  Returns (x, iters,
+        converged, rel_red)."""
         opt = self.opt
-        count = None if self.regions is None else self.regions.count
+        regions = self.regions
+        count = None if regions is None else regions.count
         dinv = 1.0 / diag
 
         def matvec(x):
@@ -640,11 +644,12 @@ class MechSystem:
         if b.dtype != torch.float64 or not self.mixed_krylov:
             if self.gmg_meta is not None:
                 levels = gmg.build_hierarchy(self.gmg_meta, k_data, ess,
-                                             matvec, diag)
+                                             matvec, diag, regions)
                 cd = self.gmg_meta.coarse_dense
 
                 def precond(v):
-                    return gmg.v_cycle(levels, v, coarse_dense=cd)
+                    return gmg.v_cycle(levels, v, coarse_dense=cd,
+                                       regions=regions)
 
             return pcg(matvec, precond, *args, dot=self.dot, count=count)
         f32 = torch.float32
@@ -659,15 +664,16 @@ class MechSystem:
 
         if self.gmg_meta is not None:
             levels = gmg.build_hierarchy(self.gmg_meta, k32, ess, matvec32,
-                                         diag.to(f32))
+                                         diag.to(f32), regions)
             cd = self.gmg_meta.coarse_dense
 
             def precond32(v):
-                return gmg.v_cycle(levels, v, coarse_dense=cd)
+                return gmg.v_cycle(levels, v, coarse_dense=cd,
+                                   regions=regions)
 
             def precond(v):
-                return gmg.v_cycle(levels, v.to(f32),
-                                   coarse_dense=cd).to(b.dtype)
+                return gmg.v_cycle(levels, v.to(f32), coarse_dense=cd,
+                                   regions=regions).to(b.dtype)
 
         return pcg_refined(matvec, precond, matvec32, precond32, *args,
                            dot=self.dot, count=count)

@@ -13,9 +13,18 @@ e = i + nx*(j + ny*k).  Coarse-level E <-> T maps are the strided
 structured maps (``fem.space.StructuredMap``), so every level sums in a
 fixed order.  The coarsest matrix is factored once per hierarchy rather
 than once per cycle: the same numbers, less work.
+
+With a ``utils.profiling.Regions`` given (``regions``, the system's when
+region timing is on), ``build_hierarchy`` is span ``gmg.build`` and
+counts ``gmg.coarse_factor_failures`` (a device sum: hierarchies whose
+coarsest matrix was not positive definite), and ``v_cycle`` is span
+``gmg.v_cycle`` with its dense coarse solve as span
+``gmg.coarse_solve``; none of them reads the device or changes a number.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -191,8 +200,10 @@ def _chebyshev(matvec, dinv, b, x, lmax, degree=3):
     return x
 
 
-def _dense_factor(k, conn, ess, nn):
-    """Cholesky factor of the assembled coarsest-level matrix.
+def _dense_factor(k, conn, ess, nn, regions=None):
+    """Cholesky factor of the assembled coarsest-level matrix; counted as
+    ``gmg.coarse_factor_failures`` in ``regions``, where given, when it is
+    not positive definite.
 
     Assembled by 64 local-node-pair adds; within one pair every target
     entry is hit once, so the sums are order-independent."""
@@ -214,6 +225,8 @@ def _dense_factor(k, conn, ess, nn):
     # a NaN factor, not an exception, so the V-cycle returns NaN, PCG
     # stops on breakdown and the Newton step fails and is retried
     L, info = torch.linalg.cholesky_ex(A + 1e-12 * eye)
+    if regions is not None:
+        regions.count_on_device("gmg.coarse_factor_failures", info != 0)
     return torch.where(info == 0, L, torch.nan)
 
 
@@ -223,13 +236,26 @@ def _dense_solve(level, b):
     return torch.linalg.solve_triangular(L.T, y, upper=True)[:, 0]
 
 
+def _span(regions, name, device):
+    """Span ``name`` of ``regions``, or nothing where it is None."""
+    if regions is None:
+        return contextlib.nullcontext()
+    return regions.span(name, device)
+
+
 def build_hierarchy(meta: GMGMeta, k_fine, ess_fine, fine_matvec,
-                    fine_diag):
+                    fine_diag, regions=None):
     """Level operators from the current fine EA blocks.
 
     k_fine (24, 24, ne); ess_fine flat (3*nn,) bool; fine_matvec and
     fine_diag are the production masked matvec and assembled diagonal
     of level 0.  Returns a list of per-level dicts (0 = finest)."""
+    with _span(regions, "gmg.build", k_fine.device):
+        return _build(meta, k_fine, ess_fine, fine_matvec, fine_diag,
+                      regions)
+
+
+def _build(meta, k_fine, ess_fine, fine_matvec, fine_diag, regions):
     dtype = k_fine.dtype
     nn0 = ess_fine.numel() // 3
     dinv0 = 1.0 / fine_diag
@@ -261,19 +287,20 @@ def build_hierarchy(meta: GMGMeta, k_fine, ess_fine, fine_matvec,
                      lmax=_power_lmax(mv, dinv, 3 * nn, dtype), ess=ess1,
                      grid=meta.grids[lev], nn=nn)
         if lev == meta.nlevels - 1 and meta.coarse_dense:
-            level["chol"] = _dense_factor(k_cur, _grid_conn(*meta.grids[lev]),
-                                          ess1, nn)
+            level["chol"] = _dense_factor(
+                k_cur, _grid_conn(*meta.grids[lev]), ess1, nn, regions)
         levels.append(level)
     return levels
 
 
-def v_cycle(levels, r, degree=3, coarse_dense=True):
+def v_cycle(levels, r, degree=3, coarse_dense=True, regions=None):
     """One V(1,1) cycle; returns z ~= A^-1 r (symmetric in the A inner
     product, so a valid PCG preconditioner)."""
-    return _cycle(levels, 0, r, degree, coarse_dense)
+    with _span(regions, "gmg.v_cycle", r.device):
+        return _cycle(levels, 0, r, degree, coarse_dense, regions)
 
 
-def _cycle(levels, lev, b, degree, coarse_dense):
+def _cycle(levels, lev, b, degree, coarse_dense, regions):
     """The V-cycle from level ``lev`` down.  A module function, not a
     closure that calls itself: such a closure is a reference cycle, and
     it would keep the whole hierarchy (the fine blocks included) on the
@@ -281,7 +308,8 @@ def _cycle(levels, lev, b, degree, coarse_dense):
     L = levels[lev]
     if lev == len(levels) - 1:
         if coarse_dense:
-            return _dense_solve(L, b)
+            with _span(regions, "gmg.coarse_solve", b.device):
+                return _dense_solve(L, b)
         return _chebyshev(L["matvec"], L["dinv"], b, torch.zeros_like(b),
                           L["lmax"], 24)
     x = _chebyshev(L["matvec"], L["dinv"], b, torch.zeros_like(b),
@@ -289,7 +317,7 @@ def _cycle(levels, lev, b, degree, coarse_dense):
     r = torch.where(L["ess"], 0.0, b - L["matvec"](x))
     rc = _restrict(r.reshape(3, L["nn"]), L["grid"]).reshape(-1)
     rc = torch.where(levels[lev + 1]["ess"], 0.0, rc)
-    zc = _cycle(levels, lev + 1, rc, degree, coarse_dense)
+    zc = _cycle(levels, lev + 1, rc, degree, coarse_dense, regions)
     zf = _prolong(zc.reshape(3, levels[lev + 1]["nn"]),
                   L["grid"]).reshape(-1)
     x = x + torch.where(L["ess"], 0.0, zf)
