@@ -197,6 +197,13 @@ def _switch(value, variable):
     return env if env == "auto" else env == "1"
 
 
+def _masked(apply, x, ess):
+    """apply(x) with essential-dof identity rows and columns: the applied
+    vector's essential entries zeroed, an identity row taking x's."""
+    y = apply(torch.where(ess, 0.0, x))
+    return torch.where(ess, x, y)
+
+
 class MechSystem:
     """FE space, material model and the per-iteration compute on one
     device, component-major: nodal vectors flat (3*nn,) component planes,
@@ -577,10 +584,10 @@ class MechSystem:
             k_data, self.emap.gather(x)))
 
     def grad_matvec(self, k_data, x, ess):
-        """y = K x with essential-dof identity rows and columns."""
-        y = self.span("operator.apply", self.apply_k, k_data,
-                      torch.where(ess, 0.0, x))
-        return torch.where(ess, x, y)
+        """y = K x with essential-dof identity rows and columns, the apply
+        recorded as span ``operator.apply``."""
+        return _masked(lambda v: self.span("operator.apply", self.apply_k,
+                                           k_data, v), x, ess)
 
     def dot(self, a, b):
         """Inner product of two nodal vectors: PCG's and the norms'."""
@@ -602,6 +609,7 @@ class MechSystem:
         mesh = self._mesh
         self.mixed_krylov = getattr(opt, "mixed_krylov", True)
         self.gmg_meta = None
+        self._cycle_graphs = None
         eligible = (mesh.structure is not None and self.fes.ref.nnodes == 8
                     and opt.solver == KrylovSolver.PCG
                     and not self.point_major and not self._sharded)
@@ -622,9 +630,11 @@ class MechSystem:
         """PCG in mixed precision (f32 inner, f64 replay; plain PCG in the
         run's dtype without ``mixed_krylov``) with the GMG V-cycle or
         Jacobi, or MINRES or GMRES in f64 with Jacobi; on an f32 run each
-        solver in plain f32.  With region timing on the V-cycle's spans
-        and counter are recorded (``solvers/gmg.py``).  Returns (x, iters,
-        converged, rel_red)."""
+        solver in plain f32.  On the card the V-cycle is one CUDA graph,
+        captured once a solve (``_gmg_levels``) and replayed by both legs
+        of ``pcg_refined``.  With region timing on the V-cycle's spans
+        and counters are recorded (``solvers/gmg.py``).  Returns (x,
+        iters, converged, rel_red)."""
         opt = self.opt
         regions = self.regions
         count = None if regions is None else regions.count
@@ -643,13 +653,10 @@ class MechSystem:
             return gmres(matvec, precond, *args, count=count)
         if b.dtype != torch.float64 or not self.mixed_krylov:
             if self.gmg_meta is not None:
-                levels = gmg.build_hierarchy(self.gmg_meta, k_data, ess,
-                                             matvec, diag, regions)
-                cd = self.gmg_meta.coarse_dense
+                levels = self._gmg_levels(k_data, ess, matvec, diag)
 
                 def precond(v):
-                    return gmg.v_cycle(levels, v, coarse_dense=cd,
-                                       regions=regions)
+                    return gmg.v_cycle(levels, v, regions=regions)
 
             return pcg(matvec, precond, *args, dot=self.dot, count=count)
         f32 = torch.float32
@@ -663,20 +670,36 @@ class MechSystem:
             return dinv32 * v
 
         if self.gmg_meta is not None:
-            levels = gmg.build_hierarchy(self.gmg_meta, k32, ess, matvec32,
-                                         diag.to(f32), regions)
-            cd = self.gmg_meta.coarse_dense
+            levels = self._gmg_levels(k32, ess, matvec32, diag.to(f32))
 
             def precond32(v):
-                return gmg.v_cycle(levels, v, coarse_dense=cd,
-                                   regions=regions)
+                return gmg.v_cycle(levels, v, regions=regions)
 
             def precond(v):
-                return gmg.v_cycle(levels, v.to(f32), coarse_dense=cd,
+                return gmg.v_cycle(levels, v.to(f32),
                                    regions=regions).to(b.dtype)
 
         return pcg_refined(matvec, precond, matvec32, precond32, *args,
                            dot=self.dot, count=count)
+
+    def _gmg_levels(self, k_data, ess, matvec, diag):
+        """The GMG hierarchy of one Krylov solve (``gmg.build_hierarchy``);
+        on the card its V-cycle is captured as a CUDA graph into the
+        system's pool, with grad_matvec's masked apply as the fine matvec,
+        but with no span and past any wrapper put on ``apply_k``: nothing
+        inside a capture may record a timing event."""
+        graphs = None
+        if diag.is_cuda:
+            if self._cycle_graphs is None:
+                self._cycle_graphs = gmg.CycleGraphs(diag.device)
+            graphs = self._cycle_graphs
+
+        def plain(x):
+            return _masked(lambda v: MechSystem.apply_k(self, k_data, v), x,
+                           ess)
+
+        return gmg.build_hierarchy(self.gmg_meta, k_data, ess, matvec, diag,
+                                   self.regions, graphs, plain)
 
     def _timed(self, name, fn, *args):
         """fn(*args), recorded as region ``name`` when region timing is

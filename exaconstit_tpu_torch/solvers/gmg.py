@@ -14,12 +14,33 @@ structured maps (``fem.space.StructuredMap``), so every level sums in a
 fixed order.  The coarsest matrix is factored once per hierarchy rather
 than once per cycle: the same numbers, less work.
 
+On the card ``build_hierarchy`` captures the hierarchy's V-cycle as one
+CUDA graph (``CycleGraph``), and ``v_cycle`` replays it: the same
+kernels on the same data, so bitwise the eager cycle, in one launch in
+place of several hundred.  The graph is captured on a side stream into
+the memory pool of the caller's ``CycleGraphs`` (one a system, taken by
+each hierarchy's graph in turn), reads the levels' own tensors in
+place, and dies with the levels: it holds them, nothing holds it but
+the returned ``Levels``, and no reference cycle keeps it.  Its fine
+matvec is the one given as ``graph_matvec``: nothing inside a capture
+may record a timing event.  CPU tensors run the eager cycle.
+
+The pool stays reserved for the system's life.  It holds the cycle's
+working set (the contiguous copy of the fine blocks that each fine EA
+apply makes, the coarse level's, the cycle's vectors) and the capture
+stream's cuBLAS workspace.  That memory is the card's but not
+``torch.cuda.memory_allocated``'s once a capture has ended: measure the
+footprint by reserved memory.
+
 With a ``utils.profiling.Regions`` given (``regions``, the system's when
 region timing is on), ``build_hierarchy`` is span ``gmg.build`` and
 counts ``gmg.coarse_factor_failures`` (a device sum: hierarchies whose
-coarsest matrix was not positive definite), and ``v_cycle`` is span
-``gmg.v_cycle`` with its dense coarse solve as span
-``gmg.coarse_solve``; none of them reads the device or changes a number.
+coarsest matrix was not positive definite) and, on the card,
+``gmg.graph_captures``; ``v_cycle`` is span ``gmg.v_cycle`` and counts
+``gmg.graph_replays`` on the card, and on the CPU records its dense
+coarse solve as span ``gmg.coarse_solve`` (inside a graph nothing is
+timed: neither the coarse solve nor the fine applies); none of them
+reads the device or changes a number.
 """
 
 from __future__ import annotations
@@ -33,6 +54,8 @@ from ..fem.space import StructuredMap
 
 # dense-direct threshold for the coarsest level (3*nn dofs)
 _COARSE_DOFS = 3000
+# Chebyshev degree of the V-cycle's smoothing sweeps
+DEGREE = 3
 
 
 def _grid_conn(nx, ny, nz):
@@ -243,26 +266,51 @@ def _span(regions, name, device):
     return regions.span(name, device)
 
 
+class Levels(list):
+    """``build_hierarchy``'s levels (dicts, 0 = finest), whether the
+    coarsest is solved by its dense factor (``coarse_dense``, else by
+    Chebyshev sweeps), and on the card their V-cycle captured as one CUDA
+    graph (``graph``, a ``CycleGraph``; None on the CPU)."""
+
+    def __init__(self, levels, coarse_dense):
+        super().__init__(levels)
+        self.coarse_dense = coarse_dense
+        self.graph = None
+
+
 def build_hierarchy(meta: GMGMeta, k_fine, ess_fine, fine_matvec,
-                    fine_diag, regions=None):
+                    fine_diag, regions=None, graphs=None, graph_matvec=None):
     """Level operators from the current fine EA blocks.
 
     k_fine (24, 24, ne); ess_fine flat (3*nn,) bool; fine_matvec and
     fine_diag are the production masked matvec and assembled diagonal
-    of level 0.  Returns a list of per-level dicts (0 = finest)."""
+    of level 0.  Returns ``Levels``, a list of per-level dicts (0 =
+    finest).  On the card ``graphs`` (a ``CycleGraphs``) and
+    ``graph_matvec`` (the fine matvec the capture takes) are required,
+    and the V-cycle is captured for vectors of fine_diag's dtype."""
     with _span(regions, "gmg.build", k_fine.device):
-        return _build(meta, k_fine, ess_fine, fine_matvec, fine_diag,
-                      regions)
+        levels = _build(meta, k_fine, ess_fine, fine_matvec, fine_diag,
+                        regions)
+        if k_fine.is_cuda:
+            if graphs is None or graph_matvec is None:
+                raise ValueError("a hierarchy on the card is captured as a "
+                                 "CUDA graph: give build_hierarchy graphs= "
+                                 "and graph_matvec=")
+            levels.graph = graphs.capture(levels, graph_matvec, fine_diag)
+            if regions is not None:
+                regions.count("gmg.graph_captures")
+        return levels
 
 
 def _build(meta, k_fine, ess_fine, fine_matvec, fine_diag, regions):
     dtype = k_fine.dtype
     nn0 = ess_fine.numel() // 3
     dinv0 = 1.0 / fine_diag
-    levels = [dict(matvec=fine_matvec, dinv=dinv0,
-                   lmax=_power_lmax(fine_matvec, dinv0, ess_fine.numel(),
-                                    dtype),
-                   ess=ess_fine, grid=meta.grids[0], nn=nn0)]
+    levels = Levels([dict(matvec=fine_matvec, dinv=dinv0,
+                          lmax=_power_lmax(fine_matvec, dinv0,
+                                           ess_fine.numel(), dtype),
+                          ess=ess_fine, grid=meta.grids[0], nn=nn0)],
+                    meta.coarse_dense)
     # eliminate fine essential dofs from the blocks once; RAP keeps it
     el_ess = meta.maps[0].gather(ess_fine.to(dtype))  # (3, 8, ne)
     k_cur = _mask_blocks(k_fine, el_ess.transpose(0, 1).reshape(24, -1)
@@ -293,32 +341,109 @@ def _build(meta, k_fine, ess_fine, fine_matvec, fine_diag, regions):
     return levels
 
 
-def v_cycle(levels, r, degree=3, coarse_dense=True, regions=None):
-    """One V(1,1) cycle; returns z ~= A^-1 r (symmetric in the A inner
-    product, so a valid PCG preconditioner)."""
+def v_cycle(levels, r, regions=None):
+    """One V(1,1) cycle of Chebyshev degree ``DEGREE``; returns z ~= A^-1 r
+    (symmetric in the A inner product, so a valid PCG preconditioner), a
+    fresh tensor.  On the card the replay of the graph
+    ``build_hierarchy`` captured, for r of its dtype."""
     with _span(regions, "gmg.v_cycle", r.device):
-        return _cycle(levels, 0, r, degree, coarse_dense, regions)
+        if levels.graph is None:
+            return _cycle(levels, 0, r, regions)
+        if regions is not None:
+            regions.count("gmg.graph_replays")
+        return levels.graph(r)
 
 
-def _cycle(levels, lev, b, degree, coarse_dense, regions):
+def _cycle(levels, lev, b, regions):
     """The V-cycle from level ``lev`` down.  A module function, not a
     closure that calls itself: such a closure is a reference cycle, and
     it would keep the whole hierarchy (the fine blocks included) on the
     device until Python's cycle collector runs."""
     L = levels[lev]
     if lev == len(levels) - 1:
-        if coarse_dense:
+        if levels.coarse_dense:
             with _span(regions, "gmg.coarse_solve", b.device):
                 return _dense_solve(L, b)
         return _chebyshev(L["matvec"], L["dinv"], b, torch.zeros_like(b),
                           L["lmax"], 24)
     x = _chebyshev(L["matvec"], L["dinv"], b, torch.zeros_like(b),
-                   L["lmax"], degree)
+                   L["lmax"], DEGREE)
     r = torch.where(L["ess"], 0.0, b - L["matvec"](x))
     rc = _restrict(r.reshape(3, L["nn"]), L["grid"]).reshape(-1)
     rc = torch.where(levels[lev + 1]["ess"], 0.0, rc)
-    zc = _cycle(levels, lev + 1, rc, degree, coarse_dense, regions)
+    zc = _cycle(levels, lev + 1, rc, regions)
     zf = _prolong(zc.reshape(3, levels[lev + 1]["nn"]),
                   L["grid"]).reshape(-1)
     x = x + torch.where(L["ess"], 0.0, zf)
-    return _chebyshev(L["matvec"], L["dinv"], b, x, L["lmax"], degree)
+    return _chebyshev(L["matvec"], L["dinv"], b, x, L["lmax"], DEGREE)
+
+
+class CycleGraphs:
+    """The CUDA graphs of one system's V-cycles: the stream they are
+    captured on, and one memory pool that the graph of each hierarchy
+    takes in turn, the previous one released with its levels before the
+    next is captured, so its blocks are reused and not allocated again.
+    A pool whose last graph is released cannot be taken again, so a
+    small graph captured into it at the first capture (``_hold``) keeps
+    it open for the system's life.  The thread's cuBLAS handle is made
+    by the build's eager applies before any capture; nothing is warmed
+    up on the capture stream, where an eager allocation would stay
+    reserved, unusable by any other stream, for the system's life."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.stream = torch.cuda.Stream(self.device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self._hold = None
+
+    def capture(self, levels, fine_matvec, like):
+        """``CycleGraph`` of ``levels`` for vectors like ``like``."""
+        if self._hold is None:
+            self._hold = _captured(self, lambda: torch.zeros(
+                1, device=self.device))[0]
+        return CycleGraph(self, levels, fine_matvec, like)
+
+
+def _captured(graphs, fn):
+    """(graph, fn()) with fn's work captured on the stream of ``graphs``
+    into its pool, ordered after the current stream's work and before
+    its next."""
+    current = torch.cuda.current_stream(graphs.device)
+    graphs.stream.wait_stream(current)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(graphs.stream):
+        graph.capture_begin(pool=graphs.pool,
+                            capture_error_mode="thread_local")
+        try:
+            out = fn()
+        finally:
+            graph.capture_end()
+    # cuBLAS keeps a workspace for each stream it has run on (32 MiB on
+    # an H100).  The capture stream's is made inside the capture, in the
+    # pool, and is the graph's.  Dropped here (with the current stream's,
+    # made again from the cache at its next call), it is pool memory
+    # that the next capture takes again once this graph is gone; kept,
+    # it would be allocated memory for the system's life.  Either way it
+    # is 32 MiB of the card's memory, inside the pool's reserved bytes.
+    torch._C._cuda_clearCublasWorkspaces()
+    current.wait_stream(graphs.stream)
+    return graph, out
+
+
+class CycleGraph:
+    """One hierarchy's V-cycle as one CUDA graph, replayed on the current
+    stream: a call copies r into the static input, replays, and returns
+    a copy of the static output (PCG keeps the previous call's z).  It
+    holds the level tensors the graph reads and nothing that holds it."""
+
+    def __init__(self, graphs, levels, fine_matvec, like):
+        self._levels = Levels([dict(levels[0], matvec=fine_matvec),
+                               *levels[1:]], levels.coarse_dense)
+        self._input = torch.empty_like(like)
+        self._graph, self._output = _captured(graphs, lambda: _cycle(
+            self._levels, 0, self._input, None))
+
+    def __call__(self, r):
+        self._input.copy_(r)
+        self._graph.replay()
+        return self._output.clone()

@@ -12,17 +12,22 @@ Port of ``exaconstit_tpu.utils.profiling``:
   ``setup.point_update`` (one a setup chunk), ``setup.operator_build``,
   ``operator.apply``, and the GMG preconditioner's (``solvers/gmg.py``)
   ``gmg.build`` (one a hierarchy, one a Krylov solve), ``gmg.v_cycle``
-  (one a preconditioner call; the fine applies inside it keep their
-  ``operator.apply``) and ``gmg.coarse_solve`` (the dense triangular
-  solves on the coarsest level, one a V-cycle).  ``counters`` holds
+  (one a preconditioner call; on the CPU the fine applies inside it keep
+  their ``operator.apply``) and ``gmg.coarse_solve`` (the dense
+  triangular solves on the coarsest level, one a V-cycle, on the CPU:
+  on the card the cycle is one CUDA graph, inside which nothing is
+  timed).  ``counters`` holds
   counts, each kept under the innermost region or span open when it was
   counted ("-" outside every one): ``host_reads`` (the blocking scalar
   reads of the Newton and Krylov stop tests), ``krylov.iterations``,
   ``dogleg.points`` and ``dogleg.iterations`` (the point-solve stage's
   lanes and the iterations they report), ``operator.pa_kernel_applies``
-  (the PA applies that ran the kernel pair of ``fem/pa_apply_cuda.py``)
-  and ``gmg.coarse_factor_failures`` (a device sum: GMG hierarchies whose
-  coarsest matrix was not positive definite).  ``delta()`` gives
+  (the PA applies that ran the kernel pair of ``fem/pa_apply_cuda.py``),
+  ``gmg.coarse_factor_failures`` (a device sum: GMG hierarchies whose
+  coarsest matrix was not positive definite), and on the card
+  ``gmg.graph_captures`` and ``gmg.graph_replays`` (V-cycles captured as
+  a CUDA graph, one a hierarchy, and replayed, one a V-cycle).
+  ``delta()`` gives
   what the spans and counters gained since its last call
   (``MechSystem.newton_solve`` puts it in each solve's stats).
   On a CUDA device a region or span records a CUDA timing event on the

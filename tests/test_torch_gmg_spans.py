@@ -7,7 +7,8 @@ the CPU at 10^3, the smallest brick on which GMG builds two levels:
 * ``gmg.coarse_factor_failures`` counts a coarsest matrix that is not
   positive definite, and reads 0 on a sound one;
 * with region timing off nothing is recorded, and the step's velocity is
-  bitwise the one with it on.
+  bitwise the one with it on;
+* the CPU takes the eager cycle: no CUDA graph, no graph counter.
 """
 
 from collections import Counter
@@ -107,6 +108,13 @@ def test_regions_off_record_nothing_and_change_nothing(runs):
                for st in off.step_stats for s in st["solves"])
     assert seen_off == seen_on
     assert torch.equal(off.v, on.v)
+
+
+def test_cpu_step_takes_the_eager_cycle(runs):
+    (sim, _), _ = runs
+    assert sim.system._cycle_graphs is None
+    assert not any(name.startswith("gmg.graph")
+                   for name in sim.system.regions.counters)
 
 
 def _blocks(seed, sign):

@@ -200,7 +200,7 @@ def test_gmg_hierarchy_and_v_cycle(jax_power_start):
         assert _rel(tl["dinv"].numpy(), jl["dinv"]) < 1e-13
         np.testing.assert_array_equal(tl["ess"].numpy(), np.asarray(jl["ess"]))
     z_j = J_GMG.v_cycle(jlev, jnp.asarray(b), coarse_dense=True)
-    z_t = T_GMG.v_cycle(tlev, torch.tensor(b), coarse_dense=True)
+    z_t = T_GMG.v_cycle(tlev, torch.tensor(b))
     assert _rel(z_t.numpy(), z_j) < 1e-10
 
 
