@@ -306,7 +306,7 @@ REPL_CARDS_SHARDS = 4
 # this path's one-device numerics (Jacobi, the f32 EA build; the index
 # map sums as the strided one does), then phase 5's
 REPL_NUMERICS = (("this path's", "jacobi", True), ("phase 5's", "auto", True))
-# the region names of MechSystem._timed
+# the reference's region names (the regions of MechSystem.span)
 REGIONS = ("operator_setup", "line_search", "krylov_solve")
 # phase 20: the production-size meshes, the setup chunks "auto" takes
 # there (262,144 points a chunk), make_step's dt (phase 14's), the first

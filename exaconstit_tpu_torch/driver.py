@@ -60,8 +60,9 @@ from .models.ecmech import build_model
 from .models.umat import UmatLibrary, UmatModel
 from .parallel import sharding
 from .parallel.replicated import ReplicatedMap
-from .solvers import dogleg_cuda, gmg
+from .solvers import gmg
 from .solvers.krylov import gmres, minres, pcg, pcg_refined
+from .utils import profiling
 from .utils.guards import (FiniteTally, check_finite,
                            numerics_checks_enabled)
 from .utils.profiling import Regions
@@ -195,13 +196,6 @@ def _switch(value, variable):
         return value
     env = os.environ.get(variable, "auto")
     return env if env == "auto" else env == "1"
-
-
-def _masked(apply, x, ess):
-    """apply(x) with essential-dof identity rows and columns: the applied
-    vector's essential entries zeroed, an identity row taking x's."""
-    y = apply(torch.where(ess, 0.0, x))
-    return torch.where(ess, x, y)
 
 
 class MechSystem:
@@ -495,8 +489,7 @@ class MechSystem:
         point solution) of the elements of ``el_x`` (all or a chunk)."""
         stress, state_end, c6, x_sol = self.span(
             "setup.point_update", self._point_update, el_x, el_v, state, dt,
-            nsub, x_warm, warm_ok, True, tally,
-            counting=dogleg_cuda.KERNEL.counting)
+            nsub, x_warm, warm_ok, True, tally)
         k_data, dloc = self.span("setup.operator_build", self._build_operator,
                                  el_x, c6.reshape(6, 6, self.nq, -1), dt)
         tally.add("operator", operator_data=k_data)
@@ -533,7 +526,7 @@ class MechSystem:
                     tally):
         stress = self.span("setup.point_update", self._point_update, el_x,
                            el_v, state, dt, nsub, x_warm, warm_ok, False,
-                           tally, counting=dogleg_cuda.KERNEL.counting)[0]
+                           tally)[0]
         return (self._force(el_x, stress),)
 
     def setup(self, v, x_beg, state, dt, ess, advance_coords, nsub, x_warm,
@@ -576,18 +569,17 @@ class MechSystem:
         k_data = k_data.to(x.dtype)
         if self.pa_kernel:
             return pa_apply_cuda.pa_apply(k_data, self.dshape_as(x.dtype), x,
-                                          self.emap, self.regions)
+                                          self.emap)
         if self.pa:
             return pa_apply_cuda.pa_apply_reference(
                 k_data, self.dshape_as(x.dtype), x, self.emap)
-        return self.emap.scatter_add(ops.apply_ea_gradient_cm(
-            k_data, self.emap.gather(x)))
+        return ops.apply_ea(k_data, self.emap, x)
 
     def grad_matvec(self, k_data, x, ess):
         """y = K x with essential-dof identity rows and columns, the apply
         recorded as span ``operator.apply``."""
-        return _masked(lambda v: self.span("operator.apply", self.apply_k,
-                                           k_data, v), x, ess)
+        return ops.masked_apply(lambda v: self.span(
+            "operator.apply", self.apply_k, k_data, v), x, ess)
 
     def dot(self, a, b):
         """Inner product of two nodal vectors: PCG's and the norms'."""
@@ -632,62 +624,61 @@ class MechSystem:
         Jacobi, or MINRES or GMRES in f64 with Jacobi; on an f32 run each
         solver in plain f32.  On the card the V-cycle is one CUDA graph,
         captured once a solve (``_gmg_levels``) and replayed by both legs
-        of ``pcg_refined``.  With region timing on the V-cycle's spans
-        and counters are recorded (``solvers/gmg.py``).  Returns (x,
-        iters, converged, rel_red)."""
-        opt = self.opt
-        regions = self.regions
-        count = None if regions is None else regions.count
-        dinv = 1.0 / diag
+        of ``pcg_refined``.  The system's recorder is current inside it
+        (the counters of ``solvers/krylov.py``, the V-cycle's spans and
+        counters).  Returns (x, iters, converged, rel_red)."""
+        with profiling.recording(self.regions):
+            opt = self.opt
+            dinv = 1.0 / diag
 
-        def matvec(x):
-            return self.grad_matvec(k_data, x, ess)
-
-        def precond(v):
-            return dinv * v
-
-        args = (b, opt.krylov_rel_tol, opt.krylov_abs_tol, opt.krylov_iter)
-        if opt.solver == KrylovSolver.MINRES:
-            return minres(matvec, precond, *args, count=count)
-        if opt.solver == KrylovSolver.GMRES:
-            return gmres(matvec, precond, *args, count=count)
-        if b.dtype != torch.float64 or not self.mixed_krylov:
-            if self.gmg_meta is not None:
-                levels = self._gmg_levels(k_data, ess, matvec, diag)
-
-                def precond(v):
-                    return gmg.v_cycle(levels, v, regions=regions)
-
-            return pcg(matvec, precond, *args, dot=self.dot, count=count)
-        f32 = torch.float32
-        k32 = k_data.to(f32)
-        dinv32 = dinv.to(f32)
-
-        def matvec32(x):
-            return self.grad_matvec(k32, x, ess)
-
-        def precond32(v):
-            return dinv32 * v
-
-        if self.gmg_meta is not None:
-            levels = self._gmg_levels(k32, ess, matvec32, diag.to(f32))
-
-            def precond32(v):
-                return gmg.v_cycle(levels, v, regions=regions)
+            def matvec(x):
+                return self.grad_matvec(k_data, x, ess)
 
             def precond(v):
-                return gmg.v_cycle(levels, v.to(f32),
-                                   regions=regions).to(b.dtype)
+                return dinv * v
 
-        return pcg_refined(matvec, precond, matvec32, precond32, *args,
-                           dot=self.dot, count=count)
+            args = (b, opt.krylov_rel_tol, opt.krylov_abs_tol, opt.krylov_iter)
+            if opt.solver == KrylovSolver.MINRES:
+                return minres(matvec, precond, *args)
+            if opt.solver == KrylovSolver.GMRES:
+                return gmres(matvec, precond, *args)
+            if b.dtype != torch.float64 or not self.mixed_krylov:
+                if self.gmg_meta is not None:
+                    levels = self._gmg_levels(k_data, ess, matvec, diag)
+
+                    def precond(v):
+                        return gmg.v_cycle(levels, v)
+
+                return pcg(matvec, precond, *args, dot=self.dot)
+            f32 = torch.float32
+            k32 = k_data.to(f32)
+            dinv32 = dinv.to(f32)
+
+            def matvec32(x):
+                return self.grad_matvec(k32, x, ess)
+
+            def precond32(v):
+                return dinv32 * v
+
+            if self.gmg_meta is not None:
+                levels = self._gmg_levels(k32, ess, matvec32, diag.to(f32))
+
+                def precond32(v):
+                    return gmg.v_cycle(levels, v)
+
+                def precond(v):
+                    return gmg.v_cycle(levels, v.to(f32)).to(b.dtype)
+
+            return pcg_refined(matvec, precond, matvec32, precond32, *args,
+                               dot=self.dot)
 
     def _gmg_levels(self, k_data, ess, matvec, diag):
         """The GMG hierarchy of one Krylov solve (``gmg.build_hierarchy``);
         on the card its V-cycle is captured as a CUDA graph into the
         system's pool, with grad_matvec's masked apply as the fine matvec,
         but with no span and past any wrapper put on ``apply_k``: nothing
-        inside a capture may record a timing event."""
+        inside a capture may record a timing event (the recorder is paused
+        there too)."""
         graphs = None
         if diag.is_cuda:
             if self._cycle_graphs is None:
@@ -695,32 +686,22 @@ class MechSystem:
             graphs = self._cycle_graphs
 
         def plain(x):
-            return _masked(lambda v: MechSystem.apply_k(self, k_data, v), x,
-                           ess)
+            return ops.masked_apply(
+                lambda v: MechSystem.apply_k(self, k_data, v), x, ess)
 
         return gmg.build_hierarchy(self.gmg_meta, k_data, ess, matvec, diag,
-                                   self.regions, graphs, plain)
+                                   graphs=graphs, graph_matvec=plain)
 
-    def _timed(self, name, fn, *args):
-        """fn(*args), recorded as region ``name`` when region timing is
-        on (the reference's marks around the setups, the line-search
-        residuals and the Krylov solves)."""
+    def span(self, name, fn, *args, region=False):
+        """fn(*args), with region timing on recorded as the port's span
+        ``name`` or (``region``) as the reference's region ``name`` (the
+        setups, the line-search residuals and the Krylov solves), inside
+        which the system's recorder is current (``utils.profiling``)."""
         if self.regions is None:
             return fn(*args)
-        with self.regions.region(name, self.device):
+        timed = self.regions.region if region else self.regions.span
+        with timed(name, self.device):
             return fn(*args)
-
-    def span(self, name, fn, *args, counting=None):
-        """fn(*args), recorded as the port's span ``name`` when region
-        timing is on, and then inside ``counting(self.regions)`` too where
-        that is given."""
-        if self.regions is None:
-            return fn(*args)
-        with self.regions.span(name, self.device):
-            if counting is None:
-                return fn(*args)
-            with counting(self.regions):
-                return fn(*args)
 
     def vol_avg(self, values_q, el_x, divide=True):
         """Volume-weighted average (or, without ``divide``, the volume
@@ -786,7 +767,6 @@ class MechSystem:
 
     def _newton_solve(self, v, x_beg, state, dt, ess_mask, verbose):
         opt = self.opt
-        count = None if self.regions is None else self.regions.count
         ess = self._ess_flat(ess_mask)
         nsub = self.compute_nsub(dt)
         xw = torch.zeros((8, self.npts), dtype=state.dtype,
@@ -794,17 +774,16 @@ class MechSystem:
         ok = False
 
         def do_setup(v_it):
-            return self._timed("operator_setup", self.setup, v_it, x_beg,
-                               state, dt, ess, True, nsub, xw, ok)
+            return self.span("operator_setup", self.setup, v_it, x_beg,
+                             state, dt, ess, True, nsub, xw, ok, region=True)
 
         def do_resid(v_it):
-            return self._timed("line_search", self.residual_only, v_it,
-                               x_beg, state, dt, ess, nsub, xw, ok)
+            return self.span("line_search", self.residual_only, v_it, x_beg,
+                             state, dt, ess, nsub, xw, ok, region=True)
 
         def norm(r):
             n = float(self.norm(r))
-            if count is not None:
-                count("host_reads")
+            profiling.count("host_reads")
             return n
 
         out = do_setup(v)
@@ -826,8 +805,9 @@ class MechSystem:
                 break
             if it >= opt.newton_iter:
                 break
-            c, kit, kdone, krel = self._timed(
-                "krylov_solve", self.krylov_solve, k_data, diag, r, ess)
+            c, kit, kdone, krel = self.span(
+                "krylov_solve", self.krylov_solve, k_data, diag, r, ess,
+                region=True)
             kiters.append(int(kit))
             kconv.append(bool(kdone))
             krelres.append(float(krel))

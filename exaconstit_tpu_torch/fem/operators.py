@@ -9,7 +9,8 @@ batch axes last like them:
   node*3 + comp, K[(a,i),(b,k)] = sum_q w dt detJ dN_a/dx_j C4[i,j,k,l]
   dN_b/dx_l with the 6x6 engineering-shear tangent expanded to the
   un-symmetrized C4;
-* the EA matvec and the EA diagonal (the Jacobi preconditioner);
+* the EA matvec (``apply_ea``), the masked apply (``masked_apply``) and
+  the EA diagonal (the Jacobi preconditioner);
 * partial assembly (PA): the per-point tensor D[i,s,k,t] = (w dt/detJ)
   adj[s,j] C4[i,j,k,l] adj[t,l], its matvec through the reference shape
   gradients, and the diagonal without forming EA blocks;
@@ -104,6 +105,21 @@ def apply_ea_gradient_cm(k_cm, el_u_cm):
     u = el_u_cm.transpose(0, 1).reshape(nen * 3, -1)  # (ndof, ne)
     y = torch.einsum("abe,be->ae", k_cm, u)
     return y.reshape(nen, 3, -1).transpose(0, 1)
+
+
+def apply_ea(k_cm, emap, x):
+    """y = K x of the flat nodal field x over the element map ``emap``
+    with the EA blocks (cast to x's dtype)."""
+    return emap.scatter_add(apply_ea_gradient_cm(k_cm.to(x.dtype),
+                                                 emap.gather(x)))
+
+
+def masked_apply(apply, x, ess, identity=True):
+    """apply(x) with the essential dofs' columns taken out (x's entries
+    there zeroed) and their rows replaced by identity rows, which take x's
+    entries, or (``identity`` False: the GMG coarse levels) by zero rows."""
+    xm = torch.where(ess, 0.0, x)
+    return torch.where(ess, x if identity else xm, apply(xm))
 
 
 def ea_diagonal_cm(k_cm, nen):

@@ -22,7 +22,7 @@ from pathlib import Path
 
 import torch
 
-from ..utils import nvcc
+from ..utils import nvcc, profiling
 from . import operators as ops
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "pa_apply.cu"
@@ -141,13 +141,12 @@ def pa_apply_reference(d_pa, dshape, x, emap):
                                                      emap.gather(x)))
 
 
-def pa_apply(d_pa, dshape, x, emap, regions=None):
+def pa_apply(d_pa, dshape, x, emap):
     """y = K x on the index map ``emap``; on the card the kernels, each
-    apply also counted as ``operator.pa_kernel_applies`` in ``regions``
-    (a ``utils.profiling.Regions``) when that is given."""
+    apply also counted as ``operator.pa_kernel_applies`` to the current
+    recorder (``utils.profiling``)."""
     if x.device.type == "cpu":
         return pa_apply_reference(d_pa, dshape, x, emap)
     y = KERNEL.launch(d_pa, dshape, x, emap.conn_t, emap.table)[0]
-    if regions is not None:
-        regions.count("operator.pa_kernel_applies")
+    profiling.count("operator.pa_kernel_applies")
     return y

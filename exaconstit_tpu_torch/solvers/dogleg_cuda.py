@@ -21,7 +21,6 @@ the same with and without dual inputs.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 from pathlib import Path
 
@@ -32,7 +31,7 @@ import torch
 
 from ..models import evptn_cm as cm
 from ..models.kinetics import VocePL, primal
-from ..utils import nvcc
+from ..utils import nvcc, profiling
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 SOURCE = PKG_DIR / "csrc" / "dogleg_voce.cu"
@@ -91,29 +90,20 @@ class DoglegKernel:
 
     ``launches`` grows by one per kernel launch (in ``run``) and
     nowhere else, so a run can show that its stage went through the
-    kernel.  Inside ``counting(regions)`` every stage, the kernel's and
-    the plain version's, also adds its lanes to the counter
-    ``dogleg.points`` of that ``utils.profiling.Regions`` and the sum of
-    their iterations, kept on the device, to ``dogleg.iterations``."""
+    kernel.  Every stage, the kernel's and the plain version's, also
+    adds its lanes to the current recorder's counter ``dogleg.points``
+    (``utils.profiling``) and the sum of their iterations, kept on the
+    device, to ``dogleg.iterations``."""
 
     def __init__(self):
         self.launches = 0
-        self.regions = None
         self.build_log = ""
         self._lib = None
 
-    @contextlib.contextmanager
-    def counting(self, regions):
-        held, self.regions = self.regions, regions
-        try:
-            yield
-        finally:
-            self.regions = held
-
     def tally(self, iters):
-        """Count one stage of ``iters.numel()`` lanes into ``regions``."""
-        self.regions.count("dogleg.points", iters.numel())
-        self.regions.count_on_device("dogleg.iterations", iters)
+        """Count one stage's lanes and iterations to the current recorder."""
+        profiling.count("dogleg.points", iters.numel())
+        profiling.count_on_device("dogleg.iterations", iters)
 
     def library_path(self) -> Path:
         return nvcc.library_path(SOURCE, NVCC_FLAGS)
@@ -173,8 +163,7 @@ class DoglegKernel:
             raise RuntimeError(f"dogleg_voce_f32 launch failed: CUDA error "
                                f"{err}")
         self.launches += 1
-        if self.regions is not None:
-            self.tally(outputs[3])
+        self.tally(outputs[3])
 
 
 KERNEL = DoglegKernel()
@@ -239,8 +228,7 @@ def _plain_stage(model, x0, h, dts, d_vecd, w_sm, e_n, q_n, active, tol,
                                       None)
 
     x, ok, iters, _, J = cm.dogleg_cm(rj, x0, tol, max_iter, active0=active)
-    if KERNEL.regions is not None:
-        KERNEL.tally(iters)
+    KERNEL.tally(iters)
     return x, ok, iters, J
 
 

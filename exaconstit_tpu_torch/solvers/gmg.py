@@ -32,25 +32,25 @@ stream's cuBLAS workspace.  That memory is the card's but not
 ``torch.cuda.memory_allocated``'s once a capture has ended: measure the
 footprint by reserved memory.
 
-With a ``utils.profiling.Regions`` given (``regions``, the system's when
-region timing is on), ``build_hierarchy`` is span ``gmg.build`` and
-counts ``gmg.coarse_factor_failures`` (a device sum: hierarchies whose
-coarsest matrix was not positive definite) and, on the card,
-``gmg.graph_captures``; ``v_cycle`` is span ``gmg.v_cycle`` and counts
-``gmg.graph_replays`` on the card, and on the CPU records its dense
-coarse solve as span ``gmg.coarse_solve`` (inside a graph nothing is
-timed: neither the coarse solve nor the fine applies); none of them
-reads the device or changes a number.
+To the current recorder (``utils.profiling``) ``build_hierarchy`` is
+span ``gmg.build`` and counts ``gmg.coarse_factor_failures`` (a device
+sum: hierarchies whose coarsest matrix was not positive definite) and,
+on the card, ``gmg.graph_captures``; ``v_cycle`` is span ``gmg.v_cycle``
+and counts ``gmg.graph_replays`` on the card, and on the CPU records its
+dense coarse solve as span ``gmg.coarse_solve`` (a capture pauses the
+recorder, so inside a graph nothing is timed: neither the coarse solve
+nor the fine applies); none of them reads the device or changes a
+number.
 """
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
+from ..fem import operators as ops
 from ..fem.space import StructuredMap
+from ..utils import profiling
 
 # dense-direct threshold for the coarsest level (3*nn dofs)
 _COARSE_DOFS = 3000
@@ -177,16 +177,6 @@ def _restrict(r3, grid_f):
     return g.reshape(3, -1)
 
 
-def _ea_matvec(k_cm, smap, x, ess1):
-    """Masked EA matvec on a coarse level (flat component-major field)."""
-    x = torch.where(ess1, 0.0, x)
-    el_u = smap.gather(x)  # (3, 8, ne)
-    u = el_u.transpose(0, 1).reshape(24, -1)
-    y = torch.einsum("abe,be->ae", k_cm.to(u.dtype), u).reshape(8, 3, -1)
-    out = smap.scatter_add(y.transpose(0, 1))
-    return torch.where(ess1, x, out)
-
-
 def _power_start(n, dtype, device):
     """Seeded start vector of the lambda_max power iteration."""
     v = np.random.default_rng(0).standard_normal(n)
@@ -223,10 +213,10 @@ def _chebyshev(matvec, dinv, b, x, lmax, degree=3):
     return x
 
 
-def _dense_factor(k, conn, ess, nn, regions=None):
+def _dense_factor(k, conn, ess, nn):
     """Cholesky factor of the assembled coarsest-level matrix; counted as
-    ``gmg.coarse_factor_failures`` in ``regions``, where given, when it is
-    not positive definite.
+    ``gmg.coarse_factor_failures`` to the current recorder when it is not
+    positive definite.
 
     Assembled by 64 local-node-pair adds; within one pair every target
     entry is hit once, so the sums are order-independent."""
@@ -248,22 +238,15 @@ def _dense_factor(k, conn, ess, nn, regions=None):
     # a NaN factor, not an exception, so the V-cycle returns NaN, PCG
     # stops on breakdown and the Newton step fails and is retried
     L, info = torch.linalg.cholesky_ex(A + 1e-12 * eye)
-    if regions is not None:
-        regions.count_on_device("gmg.coarse_factor_failures", info != 0)
-    return torch.where(info == 0, L, torch.nan)
+    failed = info != 0
+    profiling.count_on_device("gmg.coarse_factor_failures", failed)
+    return torch.where(failed, torch.nan, L)
 
 
 def _dense_solve(level, b):
     L = level["chol"].to(b.dtype)
     y = torch.linalg.solve_triangular(L, b[:, None], upper=False)
     return torch.linalg.solve_triangular(L.T, y, upper=True)[:, 0]
-
-
-def _span(regions, name, device):
-    """Span ``name`` of ``regions``, or nothing where it is None."""
-    if regions is None:
-        return contextlib.nullcontext()
-    return regions.span(name, device)
 
 
 class Levels(list):
@@ -279,7 +262,7 @@ class Levels(list):
 
 
 def build_hierarchy(meta: GMGMeta, k_fine, ess_fine, fine_matvec,
-                    fine_diag, regions=None, graphs=None, graph_matvec=None):
+                    fine_diag, graphs=None, graph_matvec=None):
     """Level operators from the current fine EA blocks.
 
     k_fine (24, 24, ne); ess_fine flat (3*nn,) bool; fine_matvec and
@@ -288,21 +271,19 @@ def build_hierarchy(meta: GMGMeta, k_fine, ess_fine, fine_matvec,
     finest).  On the card ``graphs`` (a ``CycleGraphs``) and
     ``graph_matvec`` (the fine matvec the capture takes) are required,
     and the V-cycle is captured for vectors of fine_diag's dtype."""
-    with _span(regions, "gmg.build", k_fine.device):
-        levels = _build(meta, k_fine, ess_fine, fine_matvec, fine_diag,
-                        regions)
+    with profiling.span("gmg.build", k_fine.device):
+        levels = _build(meta, k_fine, ess_fine, fine_matvec, fine_diag)
         if k_fine.is_cuda:
             if graphs is None or graph_matvec is None:
                 raise ValueError("a hierarchy on the card is captured as a "
                                  "CUDA graph: give build_hierarchy graphs= "
                                  "and graph_matvec=")
             levels.graph = graphs.capture(levels, graph_matvec, fine_diag)
-            if regions is not None:
-                regions.count("gmg.graph_captures")
+            profiling.count("gmg.graph_captures")
         return levels
 
 
-def _build(meta, k_fine, ess_fine, fine_matvec, fine_diag, regions):
+def _build(meta, k_fine, ess_fine, fine_matvec, fine_diag):
     dtype = k_fine.dtype
     nn0 = ess_fine.numel() // 3
     dinv0 = 1.0 / fine_diag
@@ -328,7 +309,8 @@ def _build(meta, k_fine, ess_fine, fine_matvec, fine_diag, regions):
         diag = torch.where(torch.abs(diag) > 1e-30, diag, 1.0)
 
         def mv(x, k_lev=k_cur, smap=smap, ess_lev=ess1):
-            return _ea_matvec(k_lev, smap, x, ess_lev)
+            return ops.masked_apply(lambda v: ops.apply_ea(k_lev, smap, v),
+                                    x, ess_lev, identity=False)
 
         dinv = 1.0 / diag
         level = dict(matvec=mv, dinv=dinv,
@@ -336,25 +318,24 @@ def _build(meta, k_fine, ess_fine, fine_matvec, fine_diag, regions):
                      grid=meta.grids[lev], nn=nn)
         if lev == meta.nlevels - 1 and meta.coarse_dense:
             level["chol"] = _dense_factor(
-                k_cur, _grid_conn(*meta.grids[lev]), ess1, nn, regions)
+                k_cur, _grid_conn(*meta.grids[lev]), ess1, nn)
         levels.append(level)
     return levels
 
 
-def v_cycle(levels, r, regions=None):
+def v_cycle(levels, r):
     """One V(1,1) cycle of Chebyshev degree ``DEGREE``; returns z ~= A^-1 r
     (symmetric in the A inner product, so a valid PCG preconditioner), a
     fresh tensor.  On the card the replay of the graph
     ``build_hierarchy`` captured, for r of its dtype."""
-    with _span(regions, "gmg.v_cycle", r.device):
+    with profiling.span("gmg.v_cycle", r.device):
         if levels.graph is None:
-            return _cycle(levels, 0, r, regions)
-        if regions is not None:
-            regions.count("gmg.graph_replays")
+            return _cycle(levels, 0, r)
+        profiling.count("gmg.graph_replays")
         return levels.graph(r)
 
 
-def _cycle(levels, lev, b, regions):
+def _cycle(levels, lev, b):
     """The V-cycle from level ``lev`` down.  A module function, not a
     closure that calls itself: such a closure is a reference cycle, and
     it would keep the whole hierarchy (the fine blocks included) on the
@@ -362,7 +343,7 @@ def _cycle(levels, lev, b, regions):
     L = levels[lev]
     if lev == len(levels) - 1:
         if levels.coarse_dense:
-            with _span(regions, "gmg.coarse_solve", b.device):
+            with profiling.span("gmg.coarse_solve", b.device):
                 return _dense_solve(L, b)
         return _chebyshev(L["matvec"], L["dinv"], b, torch.zeros_like(b),
                           L["lmax"], 24)
@@ -371,7 +352,7 @@ def _cycle(levels, lev, b, regions):
     r = torch.where(L["ess"], 0.0, b - L["matvec"](x))
     rc = _restrict(r.reshape(3, L["nn"]), L["grid"]).reshape(-1)
     rc = torch.where(levels[lev + 1]["ess"], 0.0, rc)
-    zc = _cycle(levels, lev + 1, rc, regions)
+    zc = _cycle(levels, lev + 1, rc)
     zf = _prolong(zc.reshape(3, levels[lev + 1]["nn"]),
                   L["grid"]).reshape(-1)
     x = x + torch.where(L["ess"], 0.0, zf)
@@ -407,11 +388,12 @@ class CycleGraphs:
 def _captured(graphs, fn):
     """(graph, fn()) with fn's work captured on the stream of ``graphs``
     into its pool, ordered after the current stream's work and before
-    its next."""
+    its next, with the recorder paused: nothing inside a capture may
+    record a timing event."""
     current = torch.cuda.current_stream(graphs.device)
     graphs.stream.wait_stream(current)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.stream(graphs.stream):
+    with torch.cuda.stream(graphs.stream), profiling.paused():
         graph.capture_begin(pool=graphs.pool,
                             capture_error_mode="thread_local")
         try:
@@ -441,7 +423,7 @@ class CycleGraph:
                                *levels[1:]], levels.coarse_dense)
         self._input = torch.empty_like(like)
         self._graph, self._output = _captured(graphs, lambda: _cycle(
-            self._levels, 0, self._input, None))
+            self._levels, 0, self._input))
 
     def __call__(self, r):
         self._input.copy_(r)

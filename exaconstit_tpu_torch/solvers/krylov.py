@@ -9,10 +9,10 @@ loops with one host read of the stop test per iteration.  All return
 (x, iters, converged, rel_reduction).  ``pcg`` and ``pcg_refined``
 take the reference's ``dot=`` hook: every inner product and norm in them
 goes through it (the slab system passes its owner-masked global dot);
-the default is ``torch.dot``.  Each solver takes ``count=``, a counter
-``count(name, n)`` (``utils.profiling.Regions.count``) or None: it is
-given each blocking scalar read of the solve's stop tests and relative
-reduction (``"host_reads"``) and the solve's inner iterations
+the default is ``torch.dot``.  Each solver counts to the current
+recorder (``utils.profiling.count``; nothing when none is current) each
+blocking scalar read of the solve's stop tests and relative reduction
+(``"host_reads"``) and the solve's inner iterations
 (``"krylov.iterations"``; ``pcg_refined`` counts them in its inner
 ``pcg`` solves).
 
@@ -25,9 +25,10 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 
-def pcg(matvec, precond, b, rel_tol, abs_tol, max_iter, dot=torch.dot,
-        count=None):
+
+def pcg(matvec, precond, b, rel_tol, abs_tol, max_iter, dot=torch.dot):
     """Solve A x = b.  Returns (x, iters, converged, rel_reduction) with
     rel_reduction = sqrt((z, r)/(z0, r0)) in the criterion's norm."""
     x = torch.zeros_like(b)
@@ -38,8 +39,7 @@ def pcg(matvec, precond, b, rel_tol, abs_tol, max_iter, dot=torch.dot,
     nom = nom0
     r0 = torch.clamp(nom0 * rel_tol * rel_tol, min=abs_tol * abs_tol)
     converged = bool(nom <= r0)
-    if count is not None:
-        count("host_reads")
+    profiling.count("host_reads")
     it = 0
     while it < max_iter and not converged:
         ad = matvec(d)
@@ -48,8 +48,7 @@ def pcg(matvec, precond, b, rel_tol, abs_tol, max_iter, dot=torch.dot,
             # breakdown: not positive definite at this iterate (in f32
             # also by underflow); counted as an iteration, as MFEM does
             it += 1
-            if count is not None:
-                count("host_reads")
+            profiling.count("host_reads")
             break
         alpha = nom / den
         x = x + alpha * d
@@ -57,20 +56,18 @@ def pcg(matvec, precond, b, rel_tol, abs_tol, max_iter, dot=torch.dot,
         z = precond(r)
         betanom = dot(r, z)
         converged = bool(betanom <= r0)
-        if count is not None:
-            count("host_reads", 2)
+        profiling.count("host_reads", 2)
         d = z + (betanom / nom) * d
         nom = betanom
         it += 1
     relred = float(torch.sqrt(torch.clamp(nom, min=0.0)
                               / (nom0 if float(nom0) > 0.0 else 1.0)))
-    if count is not None:
-        count("host_reads", 2)
-        count("krylov.iterations", it)
+    profiling.count("host_reads", 2)
+    profiling.count("krylov.iterations", it)
     return x, it, converged, relred
 
 
-def minres(matvec, precond, b, rel_tol, abs_tol, max_iter, count=None):
+def minres(matvec, precond, b, rel_tol, abs_tol, max_iter):
     """Preconditioned MINRES (Paige-Saunders), stopping on the
     preconditioned residual norm phibar."""
     r1 = b  # x0 = 0
@@ -83,8 +80,7 @@ def minres(matvec, precond, b, rel_tol, abs_tol, max_iter, count=None):
     dbar, epsln, phibar = beta1.new_zeros(()), beta1.new_zeros(()), beta1
     cs, sn = beta1.new_full((), -1.0), beta1.new_zeros(())
     done = bool(beta1 <= goal)
-    if count is not None:
-        count("host_reads", 2)
+    profiling.count("host_reads", 2)
     it = 0
     while it < max_iter and not done:
         v = y / beta
@@ -112,18 +108,15 @@ def minres(matvec, precond, b, rel_tol, abs_tol, max_iter, count=None):
         x = x + phi * w
         it += 1
         done = bool(phibar <= goal)
-        if count is not None:
-            count("host_reads")
+        profiling.count("host_reads")
     b1 = float(beta1)
     relred = float(phibar) / (b1 if b1 > 0.0 else 1.0)
-    if count is not None:
-        count("host_reads", 2)
-        count("krylov.iterations", it)
+    profiling.count("host_reads", 2)
+    profiling.count("krylov.iterations", it)
     return x, it, done, relred
 
 
-def gmres(matvec, precond, b, rel_tol, abs_tol, max_iter, restart=50,
-          count=None):
+def gmres(matvec, precond, b, rel_tol, abs_tol, max_iter, restart=50):
     """Left-preconditioned restarted GMRES(m): modified Gram-Schmidt and
     Givens rotations in the reference's order.  A cycle stops at its
     m-th vector or as soon as the residual estimate |g[j+1]| meets the
@@ -131,8 +124,7 @@ def gmres(matvec, precond, b, rel_tol, abs_tol, max_iter, restart=50,
     reference."""
     m = restart
     beta0 = float(torch.linalg.vector_norm(precond(b)))
-    if count is not None:
-        count("host_reads")
+    profiling.count("host_reads")
     goal = max(rel_tol * beta0, abs_tol)
     x = torch.zeros_like(b)
     it, done, res = 0, beta0 <= goal, beta0
@@ -166,8 +158,7 @@ def gmres(matvec, precond, b, rel_tol, abs_tol, max_iter, restart=50,
             g[j] = cs[j] * g[j]
             H[:, j] = hcol
             k = j + 1
-            if count is not None:
-                count("host_reads")
+            profiling.count("host_reads")
             if float(torch.abs(g[j + 1])) <= goal:
                 done = True
                 break
@@ -178,17 +169,14 @@ def gmres(matvec, precond, b, rel_tol, abs_tol, max_iter, restart=50,
         x = x + torch.einsum("k,kn->n", y[:k], torch.stack(V[:k]))
         it += k
         res = float(torch.abs(g[k]))
-        if count is not None:
-            count("host_reads")
+        profiling.count("host_reads")
     relred = res / (beta0 if beta0 > 0.0 else 1.0)
-    if count is not None:
-        count("krylov.iterations", it)
+    profiling.count("krylov.iterations", it)
     return x, it, done, relred
 
 
 def pcg_refined(matvec, precond, matvec_lo, precond_lo, b, rel_tol, abs_tol,
-                max_iter, inner_rel=1e-4, max_rounds=6, dot=torch.dot,
-                count=None):
+                max_iter, inner_rel=1e-4, max_rounds=6, dot=torch.dot):
     """Mixed-precision PCG: f32 inner solves + f64 iterative refinement.
 
     Each round runs f32 PCG on the normalized current f64 residual
@@ -203,8 +191,7 @@ def pcg_refined(matvec, precond, matvec_lo, precond_lo, b, rel_tol, abs_tol,
     r = b
     nom = nom0
     done = bool(nom0 <= r0bar)
-    if count is not None:
-        count("host_reads")
+    profiling.count("host_reads")
     it = rounds = 0
     while rounds < max_rounds and it < max_iter and not done:
         # normalized inner right-hand side: late rounds have |r| ~ 1e-8
@@ -213,7 +200,7 @@ def pcg_refined(matvec, precond, matvec_lo, precond_lo, b, rel_tol, abs_tol,
         scale = torch.where(rnorm > 0.0, rnorm, 1.0)
         dx, in_it, _, _ = pcg(matvec_lo, precond_lo,
                               (r / scale).to(torch.float32), inner_rel, 0.0,
-                              max_iter - it, dot=dot, count=count)
+                              max_iter - it, dot=dot)
         dx = torch.where(torch.isfinite(dx), dx, 0.0)
         x = x + scale * dx.to(b.dtype)
         r = b - matvec(x)
@@ -221,10 +208,8 @@ def pcg_refined(matvec, precond, matvec_lo, precond_lo, b, rel_tol, abs_tol,
         it += in_it
         rounds += 1
         done = bool(nom <= r0bar)
-        if count is not None:
-            count("host_reads")
+        profiling.count("host_reads")
     relred = float(torch.sqrt(torch.clamp(nom, min=0.0)
                               / (nom0 if float(nom0) > 0.0 else 1.0)))
-    if count is not None:
-        count("host_reads", 2)
+    profiling.count("host_reads", 2)
     return x, it, done, relred

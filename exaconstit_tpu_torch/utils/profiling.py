@@ -40,6 +40,12 @@ Port of ``exaconstit_tpu.utils.profiling``:
   name, so the profiler's trace holds it on the kernels' clock, nested in
   its parent (outside a profiler the ``record_function`` is left out: it
   would cost the host a quarter of a span's time and record nothing);
+* every layer reports to the current ``Regions`` through ``span``,
+  ``count`` and ``count_on_device``, which do nothing (one lookup, no
+  allocation) when none is current.  A ``Regions``' open region or span
+  makes it current, ``recording(regions)`` makes it current around a
+  body (the system's Krylov solve), and ``paused()`` none (a CUDA
+  graph's capture, inside which nothing may record a timing event);
 * ``maybe_profile`` wraps a run in ``torch.profiler`` when
   ``EXACONSTIT_TPU_PROFILE_DIR`` is set and writes a Chrome trace there.
 """
@@ -47,6 +53,7 @@ Port of ``exaconstit_tpu.utils.profiling``:
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import os
 import time
 from collections import defaultdict, deque
@@ -55,6 +62,10 @@ import torch
 
 # pending event pairs at which those the card has passed are resolved
 BATCH = 1024
+
+# the current recorder, a Regions or None
+_CURRENT = contextvars.ContextVar("exaconstit_recorder", default=None)
+_NOTHING = contextlib.nullcontext()
 
 
 class Regions:
@@ -224,7 +235,7 @@ class _Timed:
     """One timed region or span of a ``Regions``."""
 
     __slots__ = ("regions", "name", "device", "is_span", "stream", "parent",
-                 "start", "record")
+                 "start", "record", "token")
 
     def __init__(self, regions, name, device, is_span):
         self.regions = regions
@@ -243,12 +254,14 @@ class _Timed:
             self.record.__enter__()
         self.parent = r._open[-1] if r._open else None
         r._open.append((self.name, self.is_span))
+        self.token = _CURRENT.set(r)
         self.start = r._stamp(self.stream)
         return self
 
     def __exit__(self, kind, value, tb):
         r = self.regions
         end = r._stamp(self.stream) if kind is None else None
+        _CURRENT.reset(self.token)
         r._open.pop()
         if self.record is not None:
             self.record.__exit__(kind, value, tb)
@@ -257,6 +270,41 @@ class _Timed:
         if end is not None:
             r._done(self.name, self.is_span, self.parent, self.start, end)
         return False
+
+
+@contextlib.contextmanager
+def recording(regions):
+    """A context in which ``regions`` (or None: no recorder) is current."""
+    token = _CURRENT.set(regions)
+    try:
+        yield regions
+    finally:
+        _CURRENT.reset(token)
+
+
+def paused():
+    """A context in which no recorder is current (a CUDA graph's capture)."""
+    return recording(None)
+
+
+def span(name, device=None):
+    """The current recorder's span ``name`` on ``device``, or nothing."""
+    r = _CURRENT.get()
+    return _NOTHING if r is None else r.span(name, device)
+
+
+def count(name, n=1):
+    """``Regions.count`` of the current recorder, or nothing."""
+    r = _CURRENT.get()
+    if r is not None:
+        r.count(name, n)
+
+
+def count_on_device(name, values):
+    """``Regions.count_on_device`` of the current recorder, or nothing."""
+    r = _CURRENT.get()
+    if r is not None:
+        r.count_on_device(name, values)
 
 
 @contextlib.contextmanager

@@ -2,7 +2,8 @@
 
 On the CPU (these count everywhere): ``v_cycle`` runs the eager cycle,
 bitwise ``_cycle``, records ``gmg.coarse_solve`` once a cycle and no
-graph counter, and ``build_hierarchy`` attaches no graph; the fine
+graph counter, and ``build_hierarchy`` attaches no graph; a coarse
+level's matvec is bitwise the masked EA matvec written out; the fine
 matvec the system hands the capture is bitwise its ``grad_matvec``,
 identity rows included.
 
@@ -85,13 +86,37 @@ def test_cpu_v_cycle_is_the_eager_cycle():
     regions = profiling.Regions()
     meta = gmg.GMGMeta(SMALL)
     k, ess, matvec, diag = _problem(SMALL, 3, f64, "cpu")
-    levels = gmg.build_hierarchy(meta, k, ess, matvec, diag, regions)
-    assert levels.graph is None
-    r = _vector(diag.numel(), 5, f64, "cpu")
-    z = gmg.v_cycle(levels, r, regions=regions)
-    assert torch.equal(z, gmg._cycle(levels, 0, r, None))
+    with profiling.recording(regions):
+        levels = gmg.build_hierarchy(meta, k, ess, matvec, diag)
+        assert levels.graph is None
+        r = _vector(diag.numel(), 5, f64, "cpu")
+        z = gmg.v_cycle(levels, r)
+    assert torch.equal(z, gmg._cycle(levels, 0, r))
     assert regions.spans["gmg.coarse_solve"]["calls"] == 1
     assert not any(n.startswith("gmg.graph") for n in regions.counters)
+
+
+@pytest.mark.parametrize("dtype", [f32, f64])
+def test_cpu_coarse_matvec_is_the_masked_ea_apply(dtype):
+    """A coarse level's matvec (``fem/operators``' masked EA apply, zero
+    rows at the essential dofs) is bitwise the masked EA matvec written
+    out, on x of the blocks' dtype and on f64 x over f32 blocks."""
+    meta = gmg.GMGMeta(SMALL)
+    k, ess, matvec, diag = _problem(SMALL, 3, dtype, "cpu")
+    levels = gmg.build_hierarchy(meta, k, ess, matvec, diag)
+    el_ess = meta.maps[0].gather(ess.to(dtype)).transpose(0, 1)
+    k1 = gmg._rap(gmg._mask_blocks(k, el_ess.reshape(24, -1) > 0.5),
+                  SMALL, meta.wd)
+    smap, ess1 = meta.maps[1], levels[1]["ess"]
+    for x_dtype in {dtype, f64}:
+        x = _vector(ess1.numel(), 7, x_dtype, "cpu")
+        xm = torch.where(ess1, 0.0, x)
+        u = smap.gather(xm).transpose(0, 1).reshape(24, -1)
+        y = torch.einsum("abe,be->ae", k1.to(u.dtype), u).reshape(8, 3, -1)
+        want = torch.where(ess1, xm, smap.scatter_add(y.transpose(0, 1)))
+        got = levels[1]["matvec"](x)
+        assert got.dtype == x_dtype and torch.equal(got, want)
+        assert bool((got[ess1] == 0).all()) and bool(ess1.any())
 
 
 @pytest.fixture(scope="module")
@@ -108,12 +133,12 @@ def cpu_system(tmp_path_factory):
 def test_capture_matvec_is_grad_matvec(cpu_system, dtype, monkeypatch):
     """The fine matvec the system gives the capture (no span, past any
     wrapper of apply_k) is bitwise its grad_matvec, whose identity rows
-    take the input x (the coarse levels' take the masked x)."""
+    take the input x (the coarse levels' rows there are zero)."""
     sysm = cpu_system
     got = {}
 
     def grab(*a, **kw):
-        got["args"] = a
+        got["kw"] = kw
         return gmg.Levels([], True)
 
     monkeypatch.setattr(gmg, "build_hierarchy", grab)
@@ -128,7 +153,7 @@ def test_capture_matvec_is_grad_matvec(cpu_system, dtype, monkeypatch):
         raise AssertionError("the capture's matvec went through apply_k")
 
     sysm._gmg_levels(k, ess, None, torch.ones(n, dtype=dtype))
-    plain = got["args"][7]
+    plain = got["kw"]["graph_matvec"]
     sysm.apply_k = wrapped
     try:
         y = plain(x)
@@ -157,12 +182,11 @@ def test_replay_is_bitwise_the_eager_cycle(dtype):
     r = _vector(levels[0]["dinv"].numel(), 5, dtype, "cuda")
     z = gmg.v_cycle(levels, r)
     assert bool(torch.isfinite(z).all())
-    assert torch.equal(z, gmg._cycle(levels, 0, r, None))
+    assert torch.equal(z, gmg._cycle(levels, 0, r))
     if dtype == f32:  # pcg_refined's f64 leg takes the f32 graph
         r64 = _vector(r.numel(), 7, f64, "cuda")
         z64 = gmg.v_cycle(levels, r64.to(f32)).to(f64)
-        assert torch.equal(z64, gmg._cycle(levels, 0, r64.to(f32),
-                                           None).to(f64))
+        assert torch.equal(z64, gmg._cycle(levels, 0, r64.to(f32)).to(f64))
 
 
 MiB = 1 << 20
@@ -200,12 +224,12 @@ def test_hierarchies_in_turn_reuse_the_pool():
     allocated = [torch.cuda.memory_allocated()]
     # the eager cycle on the first hierarchy, with no graph made
     k, ess, matvec, diag = _problem(LARGE, 3, f32, "cuda")
-    levels = gmg._build(gmg.GMGMeta(LARGE), k, ess, matvec, diag, None)
+    levels = gmg._build(gmg.GMGMeta(LARGE), k, ess, matvec, diag)
     r = _vector(diag.numel(), 3, f32, "cuda")
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    z = gmg._cycle(levels, 0, r, None)
+    z = gmg._cycle(levels, 0, r)
     torch.cuda.synchronize()
     working_set = torch.cuda.max_memory_allocated() - held
     eager_reserved = torch.cuda.memory_reserved()
@@ -218,8 +242,7 @@ def test_hierarchies_in_turn_reuse_the_pool():
     for seed in (3, 4, 5):
         levels = _levels(LARGE, seed, f32, graphs)
         r = _vector(levels[0]["dinv"].numel(), seed, f32, "cuda")
-        assert torch.equal(gmg.v_cycle(levels, r),
-                           gmg._cycle(levels, 0, r, None))
+        assert torch.equal(gmg.v_cycle(levels, r), gmg._cycle(levels, 0, r))
         torch.cuda.synchronize()
         reserved.append(torch.cuda.memory_reserved())
         pool.append(_pool_bytes(graphs.pool))
@@ -249,7 +272,7 @@ def test_returned_z_is_not_overwritten():
     z3 = gmg.v_cycle(levels, r1)
     assert torch.equal(z1, kept) and not torch.equal(z1, z2)
     assert torch.equal(z3, z1)
-    assert torch.equal(z2, gmg._cycle(levels, 0, r2, None))
+    assert torch.equal(z2, gmg._cycle(levels, 0, r2))
 
 
 @pytest.mark.cuda
@@ -361,8 +384,8 @@ def test_krylov_solve_matches_the_eager_cycle(card_step, monkeypatch):
     with torch.inference_mode():
         x, iters, conv, _ = sysm.krylov_solve(*args)
 
-        def eager(levels, r, regions=None):
-            return gmg._cycle(levels, 0, r, regions)
+        def eager(levels, r):
+            return gmg._cycle(levels, 0, r)
 
         monkeypatch.setattr(gmg, "v_cycle", eager)
         x_e, iters_e, conv_e, _ = sysm.krylov_solve(*args)

@@ -31,6 +31,7 @@ from exaconstit_tpu_torch.driver import Simulation, run_simulation
 from exaconstit_tpu_torch import driver
 from exaconstit_tpu_torch.models import kinetics
 from exaconstit_tpu_torch.solvers import dogleg_cuda, krylov
+from exaconstit_tpu_torch.utils import profiling
 from exaconstit_tpu_torch.utils.guards import (NonFiniteError, check_finite,
                                                numerics_checks_enabled)
 
@@ -207,15 +208,15 @@ def test_regions_unset_record_nothing(tmp_path, monkeypatch):
     """With EXACONSTIT_TPU_REGIONS unset no region, span or counter is
     made or counted, and the averages are bitwise the counted run's."""
     sim, _ = _counted_run(tmp_path / "on", monkeypatch)
-    assert dogleg_cuda.KERNEL.regions is None
+    assert profiling._CURRENT.get() is None
     monkeypatch.delenv("EXACONSTIT_TPU_REGIONS")
 
     def refused(*a, **k):
         raise AssertionError("region timing is off")
 
     monkeypatch.setattr(driver, "Regions", refused)
-    monkeypatch.setattr(dogleg_cuda.DoglegKernel, "tally", refused)
-    monkeypatch.setattr(dogleg_cuda.DoglegKernel, "counting", refused)
+    for name in ("span", "region", "count", "count_on_device"):
+        monkeypatch.setattr(profiling.Regions, name, refused)
     opt = T_OPT.parse_options(_case(tmp_path / "off"))
     opt.newton_rel_tol, opt.newton_abs_tol = 1e-10, 1e-16
     off = Simulation(opt, workdir=str(tmp_path / "off"), device="cpu")

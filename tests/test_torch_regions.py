@@ -1,18 +1,18 @@
 """``utils/profiling.Regions`` on its own: the tables of regions, spans and
-counters, and (marked ``cuda``) timing on the card without waiting for
-it.  Imports nothing of the JAX package, so that the card's tests run
-here:
+counters, the current recorder that the layers report to, and (marked
+``cuda``) timing on the card without waiting for it.  Imports nothing of
+the JAX package, so that the card's tests run here:
 
     python -m pytest tests/test_torch_regions.py -q -m cuda   # on the card
 """
 
 import time
-from collections import Counter
 
 import pytest
 import torch
 
 from exaconstit_tpu_torch.solvers import krylov
+from exaconstit_tpu_torch.utils import profiling
 from exaconstit_tpu_torch.utils.profiling import Regions
 
 
@@ -66,9 +66,9 @@ def test_a_raising_body_is_not_timed():
 @pytest.mark.parametrize("solver", ["pcg", "pcg_refined", "minres",
                                     "gmres"])
 def test_krylov_counts_every_host_read(solver):
-    """Each solver's ``count`` is given every blocking scalar read the
-    profiler sees it make (``aten::_local_scalar_dense``) and its
-    iterations."""
+    """Each solver counts to the current recorder every blocking scalar
+    read the profiler sees it make (``aten::_local_scalar_dense``) and
+    its iterations."""
     g = torch.Generator().manual_seed(5)
     m = torch.rand(40, 40, dtype=torch.float64, generator=g)
     a = m @ m.T + 40 * torch.eye(40, dtype=torch.float64)
@@ -76,23 +76,53 @@ def test_krylov_counts_every_host_read(solver):
     dinv = 1.0 / torch.diagonal(a)
     args = (lambda x: a @ x, lambda r: dinv * r)
     lo = (lambda x: a.float() @ x, lambda r: dinv.float() * r)
-    counts = Counter()
-
-    def count(name, n=1):
-        counts[name] += n
-
+    r = Regions()
     with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof, \
+            profiling.recording(r):
         if solver == "pcg_refined":
-            out = krylov.pcg_refined(*args, *lo, b, 1e-12, 0.0, 200,
-                                     count=count)
+            out = krylov.pcg_refined(*args, *lo, b, 1e-12, 0.0, 200)
         else:
-            out = getattr(krylov, solver)(*args, b, 1e-12, 0.0, 200,
-                                          count=count)
+            out = getattr(krylov, solver)(*args, b, 1e-12, 0.0, 200)
     reads = sum(e.count for e in prof.key_averages()
                 if e.key == "aten::_local_scalar_dense")
     assert out[2] and out[1] > 3
-    assert counts == {"host_reads": reads, "krylov.iterations": out[1]}
+    assert r.counters == {"host_reads": {"-": reads},
+                          "krylov.iterations": {"-": out[1]}}
+
+
+def test_helpers_report_to_the_current_recorder():
+    """A ``Regions``' open span makes it current, ``recording`` makes one
+    current around a body and ``paused`` none: the helpers report to the
+    current one, under its innermost open span, and outside every one do
+    nothing."""
+    a, b = Regions(), Regions()
+    iters = torch.tensor([2, 3], dtype=torch.int32)
+    profiling.count("host_reads")
+    with profiling.span("operator.apply", "cpu"):
+        profiling.count_on_device("dogleg.iterations", iters)
+    with profiling.recording(a):
+        profiling.count("host_reads")
+        with profiling.span("gmg.v_cycle", "cpu"):
+            profiling.count("host_reads", 2)
+            with profiling.paused():
+                profiling.count("host_reads")
+                with profiling.span("gmg.coarse_solve", "cpu"):
+                    pass
+                with b.span("newton.solve", "cpu"):
+                    profiling.count("host_reads")
+                    profiling.count_on_device("dogleg.iterations", iters)
+                profiling.count("host_reads")
+            profiling.count("krylov.iterations")
+    profiling.count("host_reads")
+    assert profiling._CURRENT.get() is None
+    assert a.counters == {
+        "host_reads": {"-": 1, "gmg.v_cycle": 2},
+        "krylov.iterations": {"gmg.v_cycle": 1}}
+    assert {n: s["calls"] for n, s in a.spans.items()} == {"gmg.v_cycle": 1}
+    assert b.counters == {"host_reads": {"newton.solve": 1},
+                          "dogleg.iterations": {"newton.solve": 5}}
+    assert {n: s["calls"] for n, s in b.spans.items()} == {"newton.solve": 1}
 
 
 @pytest.mark.cuda
