@@ -13,8 +13,8 @@ failed check exits non-zero with no result line:
 2. build: nvcc builds the dogleg kernel from csrc/; registers and spills
    from -Xptxas -v, resident blocks per SM from the occupancy query (no
    spills, and at least 16 resident warps per SM); then the PA apply's
-   kernels (csrc/pa_apply.cu): registers, local bytes and resident
-   blocks of each, no spills;
+   kernels (csrc/pa_apply.cu) and the EA apply's (csrc/ea_apply.cu):
+   registers, local bytes and resident blocks of each, no spills;
 3. the kernel against its plain PyTorch version on seeded inputs at
    884,736 points (a 48^3 mesh x 8 quadrature points) and 262,144
    (32^3): converged flags, solutions (atol 2e-5), residuals, inactive
@@ -29,9 +29,11 @@ failed check exits non-zero with no result line:
    run it) timed beside the mixed one;
 5. the main path: ``run_simulation`` on an in-repo 32^3 FCC Voce case
    (500 Voronoi grains, uniaxial tension, dt 0.1, 0.2, 0.5) on the
-   card, with the kernel's launch count reset just before and read just
-   after; every step converges, stress is finite, and the hardening
-   slope drops below half the elastic one.  Region timings on
+   card, with the kernel's launch count and the EA apply's (its
+   operator applies and the V-cycle's on the strided map) reset just
+   before and read just after; both launched, every step converges,
+   stress is finite, and the hardening slope drops below half the
+   elastic one.  Region timings on
    (EXACONSTIT_TPU_REGIONS): the seconds and calls of the setups, the
    line-search residuals and the Krylov solves.  Each launch records a CUDA
    event pair around the kernel call alone (not the wrapper's output
@@ -186,9 +188,12 @@ failed check exits non-zero with no result line:
    ``entry.dryrun_multichip(4)`` on one card (the replicated-node
    ``make_step(2)`` on 2x2x4 and the slab's Newton solve on 16x16x8 over
    4 shards): seconds, Newton iterations, kernel launches; (b) the 32^3
-   Voce case with and without ``EXACONSTIT_TPU_NO_STRUCT=1``: the BC
-   corrector and step 1's first setup and Krylov solve bitwise equal, the
-   index map and GMG taken, one scatter-add timed for each map; (c)
+   Voce case with and without ``EXACONSTIT_TPU_NO_STRUCT=1``, both with
+   the EA apply's plain form (the strided map's kernel pair sums in
+   another order than the index map's einsum; phase 22 holds it to the
+   plain form): the BC corrector and step 1's first setup and Krylov
+   solve bitwise equal, the index map and GMG taken, one scatter-add
+   timed for each map; (c)
    ``EXACONSTIT_TPU_PRECISION`` through the CLI at 4^3 on the f32 case
    file and a copy that says ``precision = "f64"`` (the same
    tolerances): "f32" on the copy runs in f32 with 0 kernel launches,
@@ -200,7 +205,15 @@ failed check exits non-zero with no result line:
    NSGA-III fit at ``--pop 4 --gens 1`` against a three-step curve from
    a seeded port run with the Voce g0 moved: each finishes with no
    failed candidate, writes its checkpoint and resumes from it without
-   running generation 0 again.
+   running generation 0 again;
+22. the EA apply's kernel pair (``--only ea_apply``, csrc/ea_apply.cu)
+   at 32^3 on seeded f32 blocks, with an f32 x and with an f64 x:
+   ``operators.apply_ea`` launches it once, within ``EA_TOL`` of the
+   plain version over the largest |y|, two calls bitwise equal, the node
+   pass bitwise the plain scatter of the kernel's element vectors; its
+   device time (element and node pass, profiler) beside its bytes bound,
+   ``operators.apply_ea`` a call (CUDA events, with the host's part) and
+   the plain version's time a call, logged (the times decide nothing).
 """
 
 import argparse
@@ -237,6 +250,9 @@ MTSDD_DTS = (0.01, 0.01)
 MESH_PA_DTS = (0.1,)
 # the PA kernels against their plain version, over the largest |y|
 PA_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+# the EA apply's kernels against the plain version over the largest |y|,
+# by x's type (f32 blocks): tests/test_torch_ea_apply.py's TOL and reason
+EA_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 # The f32 path: ten elastic steps to phase 5's first output time, t = 0.1,
 # where sigma_zz compares with phase 5's f64 value.  At dt 0.1 its first
 # Newton solve stalls near 0.7 of its first residual and then grows to 7x
@@ -327,6 +343,7 @@ BCC_STAGE_SIZE = 262_144
 TPU_KERNEL = "exaconstit_tpu/solvers/dogleg_pallas.py:211"
 KERNEL_SOURCE = "exaconstit_tpu_torch/csrc/dogleg_voce.cu"
 PA_SOURCE = "exaconstit_tpu_torch/csrc/pa_apply.cu"
+EA_SOURCE = "exaconstit_tpu_torch/csrc/ea_apply.cu"
 # NVIDIA H100 SXM data sheet: f32 outside the tensor cores, HBM3
 F32_OPS_PER_S = 67e12
 BYTES_PER_S = 3.35e12
@@ -483,6 +500,19 @@ def phase_build():
                     f"blocks of {i['threads']} per SM"
                     for name, i in PA.build_info().items()))
     check(spills and not any(spills), "the PA kernels spill")
+    from exaconstit_tpu_torch.fem.ea_apply_cuda import KERNEL as EA
+    t0 = time.perf_counter()
+    path = EA.build()
+    secs = time.perf_counter() - t0
+    logf = path.with_suffix(".log")
+    ea_log = logf.read_text() if logf.exists() else EA.build_log
+    spills = [int(v) for v in re.findall(r"(\d+) bytes spill", ea_log)]
+    log(f"[2 build] {secs:.2f} s -> {path.name}; "
+        + "; ".join(f"{name}: {i['registers']} registers, "
+                    f"{i['local_bytes']} local bytes, {i['blocks_per_sm']} "
+                    f"blocks of {i['threads']} per SM"
+                    for name, i in EA.build_info().items()))
+    check(spills and not any(spills), "the EA kernels spill")
     return info
 
 
@@ -686,21 +716,26 @@ def region_split(label, sim, wall):
 
 
 def phase_main(workdir):
+    from exaconstit_tpu_torch.fem import ea_apply_cuda
     from exaconstit_tpu_torch.solvers import dogleg_cuda as dc
     KERNEL = dc.KERNEL
     torch.cuda.reset_peak_memory_stats()
     with LaunchRecorder(KERNEL) as rec, env(EXACONSTIT_TPU_REGIONS="1"):
         KERNEL.launches = 0
+        ea_apply_cuda.KERNEL.launches = 0
         t0 = time.perf_counter()
         sim, stress = run_case((32, 32, 32), MAIN_DTS, "cuda", workdir)
         wall = time.perf_counter() - t0
         launches = KERNEL.launches
+        ea_launches = ea_apply_cuda.KERNEL.launches
     peak = torch.cuda.max_memory_allocated()
     ms, it_max, it_sum = rec.read()
     check(len(ms) == launches, f"{len(ms)} recorded launches != {launches}")
     check(stress.shape == (len(MAIN_DTS), 6), f"stress rows {stress.shape}")
     check(np.isfinite(stress).all(), "average stress is not finite")
     check(launches > 0, "the main path never launched the dogleg kernel")
+    check(ea_launches > 0, "the main path never launched the EA apply's "
+          "kernels")
     for k, (st, secs) in enumerate(zip(sim.step_stats, sim.step_times)):
         kr = st["krylov_iters"]
         retry = (f"first solve failed after NR {st['first_nr']}, "
@@ -717,7 +752,8 @@ def phase_main(workdir):
           f"no plastic flow: dszz/deps {slopes[0]:.4g} -> {slopes[-1]:.4g}")
     log(f"[5 main 32^3] {sim.system.npts} points, precond "
         f"{sim.system.precond_kind}, wall {wall:.2f} s, dszz/deps "
-        f"{slopes.round(3).tolist()} GPa, kernel launches {launches}, peak "
+        f"{slopes.round(3).tolist()} GPa, kernel launches {launches}, EA "
+        f"apply launches {ea_launches} (V-cycle captures included), peak "
         f"memory {peak / 2**30:.3f} GiB")
     region_split("5 main 32^3", sim, wall)
     ops, nbytes = zip(*(dc.stage_work(n, int(s))
@@ -741,7 +777,8 @@ def phase_main(workdir):
         f"{it_sum[slow] / rec.points[slow]:.3f}; median ms of launches "
         f"with / without a lane at max_iter: {median(ms[tail]):.4f} / "
         f"{median(ms[~tail]):.4f}")
-    return dict(launches=launches, median_ms=float(np.median(ms)),
+    return dict(launches=launches, ea_launches=ea_launches,
+                median_ms=float(np.median(ms)),
                 max_ms=float(ms.max()), szz=stress[:, 2],
                 subdivided=[st["subdivided"] for st in sim.step_stats])
 
@@ -1005,18 +1042,30 @@ def check_setup_bitwise(toml):
     return pa_ms
 
 
-def kernel_device_ms(fn, prefix, calls=20):
+def kernel_device_ms(fn, prefix, calls=20, tries=3):
     """Device ms per call of ``fn`` in the kernels whose names start with
-    ``prefix``, from a profiler trace of ``calls`` calls."""
+    ``prefix`` (one launch a call), from a profiler trace of ``calls``
+    calls.  A trace that holds fewer launches of them, or no device time
+    (the card's profiler once returned none for a kernel it timed in
+    another call), is logged and taken again, at most ``tries`` times in
+    all, then fails."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages()
-               if prefix in e.key) / 1e3 / calls
+    for _ in range(tries):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        seen = [e for e in prof.key_averages() if prefix in e.key]
+        launches = sum(e.count for e in seen)
+        us = sum(e.device_time_total for e in seen)
+        if launches == calls and us > 0:
+            return us / 1e3 / calls
+        log(f"[profiler] {prefix}: {launches} launches of {calls} calls, "
+            f"{us:.1f} us traced; tracing again")
+    check(False, f"the profiler did not trace {prefix}'s {calls} launches "
+          f"in {tries} tries")
 
 
 def pa_apply_kernel(sysm, k, x):
@@ -1060,6 +1109,62 @@ def pa_apply_kernel(sysm, k, x):
         f"{bound_ms:.4f} ms ({nbytes:.4e} bytes), share "
         f"{bound_ms / dev_ms:.3f}; apply_k {out['apply_ms']:.4f} ms a call; "
         f"plain {out['plain_ms']:.4f} ms; max gap {err:.3e} of max |y|")
+    return out
+
+
+def phase_ea_apply(grid=(32, 32, 32)):
+    """Phase 22: the EA apply's kernel pair against its plain version on
+    seeded symmetric positive definite f32 blocks, for an f32 and an f64
+    x: ``apply_ea`` launches it once, the largest gap over the largest
+    |y| (``EA_TOL``), two calls bitwise equal, the node pass bitwise the
+    plain scatter of the element vectors; the times logged."""
+    from exaconstit_tpu_torch.fem import ea_apply_cuda as ec
+    from exaconstit_tpu_torch.fem import operators as ops
+    from exaconstit_tpu_torch.fem.space import StructuredMap
+    f64 = torch.float64
+    smap = StructuredMap(grid)
+    ne = grid[0] * grid[1] * grid[2]
+    g = torch.Generator().manual_seed(22)
+    b = torch.randn(ne, 24, 24, dtype=f64, generator=g)
+    k = (b.transpose(1, 2) @ b + 24 * torch.eye(24, dtype=f64)).permute(
+        1, 2, 0).contiguous().to(dtype=torch.float32, device="cuda")
+    del b
+    x64 = torch.randn(3 * int(np.prod(smap.nodes)), dtype=f64,
+                      generator=g).cuda()
+    out = {}
+    for dtype in (torch.float32, f64):
+        x = x64.to(dtype)
+        tag = f"[22 EA apply {grid[0]}^3 f32 blocks, {str(dtype)[6:]} x]"
+        before = ec.KERNEL.launches
+        y = ops.apply_ea(k, smap, x)
+        check(ec.KERNEL.launches == before + 1, f"{tag} apply_ea did not "
+              "launch the EA kernels")
+        want = ops.apply_ea_plain(k, smap, x)
+        y2, el_y = ec.KERNEL.launch(k, x, grid)
+        err = float((y - want).abs().max() / want.abs().max())
+        check(err <= EA_TOL[dtype], f"{tag} kernel against plain {err:.3e} "
+              f"> {EA_TOL[dtype]:.0e} of max |y|")
+        check(torch.equal(y, y2), f"{tag} two kernel applies differ")
+        check(torch.equal(y, smap.scatter_add(el_y)), f"{tag} the node pass "
+              "is not the plain scatter of the element vectors")
+        nbytes = k.numel() * k.element_size() + 2 * x.numel() \
+            * x.element_size()
+        bound_ms = 1e3 * nbytes / BYTES_PER_S
+        run = lambda: ops.apply_ea(k, smap, x)  # noqa: E731
+        r = dict(kernel_ms=kernel_device_ms(run, "ea_element_kernel"),
+                 node_ms=kernel_device_ms(run, "ea_node_kernel"),
+                 apply_ms=cuda_time_ms(run, reps=5), bound_ms=bound_ms,
+                 plain_ms=cuda_time_ms(
+                     lambda: ops.apply_ea_plain(k, smap, x), reps=5),
+                 max_rel_err=err)
+        dev_ms = r["kernel_ms"] + r["node_ms"]
+        log(f"{tag} kernels {dev_ms:.4f} ms (element {r['kernel_ms']:.4f}, "
+            f"node {r['node_ms']:.4f}) against the bytes bound "
+            f"{bound_ms:.4f} ms ({nbytes:.4e} bytes), share "
+            f"{bound_ms / dev_ms if dev_ms else 0:.3f}; apply_ea "
+            f"{r['apply_ms']:.4f} ms a call; plain {r['plain_ms']:.4f} ms; "
+            f"max gap {err:.3e} of max |y|")
+        out[str(dtype)[6:]] = r
     return out
 
 
@@ -1337,17 +1442,33 @@ def entry_legs(workdir):
     return dict(dryrun_launches=n[0], dryrun_seconds=wall)
 
 
+@contextlib.contextmanager
+def plain_ea_apply():
+    """``operators.apply_ea`` as its plain form for the body (on the
+    strided map too), restored after."""
+    from exaconstit_tpu_torch.fem import operators as ops
+    saved = ops.apply_ea
+    ops.apply_ea = ops.apply_ea_plain
+    try:
+        yield
+    finally:
+        ops.apply_ea = saved
+
+
 def no_struct_leg(workdir):
     """Phase 21 (b): the 32^3 Voce case with and without
-    EXACONSTIT_TPU_NO_STRUCT=1 on the card: the run's first setup and
-    Krylov solve (the BC corrector), then step 1's first setup and Krylov
-    solve, bitwise equal, GMG in both; one scatter-add timed for each
-    map."""
+    EXACONSTIT_TPU_NO_STRUCT=1 on the card, both with the EA apply's
+    plain form (``plain_ea_apply``: on the strided map the kernel pair
+    sums in another order than the index map's einsum): the run's first
+    setup and Krylov solve (the BC corrector), then step 1's first setup
+    and Krylov solve, bitwise equal, GMG in both; one scatter-add timed
+    for each map."""
     from exaconstit_tpu_torch.fem.space import IndexMap, StructuredMap
     toml = write_case((32, 32, 32), MAIN_DTS[:1], workdir)
     outs, ms = {}, {}
     for flag, kind in (("0", StructuredMap), ("1", IndexMap)):
-        with env(EXACONSTIT_TPU_NO_STRUCT=flag), torch.inference_mode():
+        with env(EXACONSTIT_TPU_NO_STRUCT=flag), torch.inference_mode(), \
+                plain_ea_apply():
             sim = card_simulation(toml)
             sysm = sim.system
             check(isinstance(sysm.emap, kind) and sysm.precond_kind == "gmg",
@@ -1370,7 +1491,8 @@ def no_struct_leg(workdir):
               f"between the strided and the index map")
     log(f"[21 no struct 32^3] EXACONSTIT_TPU_NO_STRUCT=1: IndexMap, GMG; "
         f"the corrector and step 1's first setup and Krylov solve bitwise "
-        f"equal to the strided map's; one scatter-add {ms['0']:.4f} ms "
+        f"equal to the strided map's, both with the plain EA apply; one "
+        f"scatter-add {ms['0']:.4f} ms "
         f"strided, {ms['1']:.4f} ms indexed")
     return ms
 
@@ -3024,7 +3146,7 @@ def phase_large(workdir, reps=LARGE_REPS):
 
 PHASES = ("stage", "staggered", "main", "cpu", "mtsdd", "mesh_pa",
           "configs", "f32", "profile", "guard", "make_step", "slab",
-          "replicated", "variants", "large", "entry")
+          "replicated", "variants", "large", "entry", "ea_apply")
 
 
 def main(argv=None):
@@ -3091,6 +3213,8 @@ def main(argv=None):
                                     args.reps or LARGE_REPS)
             if "entry" in only:
                 phase_entry(os.path.join(tmp, "entry"))
+            if "ea_apply" in only:
+                ea_apply = phase_ea_apply()
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr, flush=True)
         return 1
@@ -3139,7 +3263,18 @@ def main(argv=None):
         "plain_ms": mesh_pa["pa_ms"]["float32"]["plain_ms"],
         "bound_ms": mesh_pa["pa_ms"]["float32"]["bound_ms"],
         "bound_by": "bytes", "library_ms": None,
-        "apply_ms": mesh_pa["pa_ms"]["float32"]["apply_ms"]}]}))
+        "apply_ms": mesh_pa["pa_ms"]["float32"]["apply_ms"]}, {
+        # the EA apply's kernel pair at 32^3, f32 blocks and x (an f64 x
+        # in PERF.md); library_ms: no single PyTorch call computes it
+        "name": "ea_apply", "route": "cuda", "source": EA_SOURCE,
+        "replaces": None, "launches": main_path["ea_launches"],
+        "max_rel_err": ea_apply["float32"]["max_rel_err"],
+        "ms": (ea_apply["float32"]["kernel_ms"]
+               + ea_apply["float32"]["node_ms"]),
+        "plain_ms": ea_apply["float32"]["plain_ms"],
+        "bound_ms": ea_apply["float32"]["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "apply_ms": ea_apply["float32"]["apply_ms"]}]}))
     log(f"[16 total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -48,7 +48,7 @@ from .config.options import (Assembly, ExaOptions, IntegrationType,
                              KrylovSolver, MechType, MeshType, NLSolver,
                              OriType, parse_options)
 from .fem import operators as ops
-from .fem import pa_apply_cuda
+from .fem import ea_apply_cuda, pa_apply_cuda
 from .fem.geometry import (adjugate_3x3_cm, det_3x3_cm, grad_calc_cm,
                            jacobians_cm)
 from .fem.space import FESpace, IndexMap, StructuredMap
@@ -563,16 +563,18 @@ class MechSystem:
         return self._dshapes[dtype]
 
     def apply_k(self, k_data, x):
-        """K x with the operator data (promoted to x's dtype); on an
-        order-1 index map the PA apply is ``pa_apply_cuda.pa_apply`` (the
-        kernel pair on the card, the plain version on the CPU)."""
-        k_data = k_data.to(x.dtype)
-        if self.pa_kernel:
-            return pa_apply_cuda.pa_apply(k_data, self.dshape_as(x.dtype), x,
-                                          self.emap)
+        """K x with the operator data: the PA tensor promoted to x's
+        dtype, on an order-1 index map through ``pa_apply_cuda.pa_apply``
+        (the kernel pair on the card, the plain version on the CPU); the
+        EA blocks as stored, through ``ops.apply_ea`` (on the card's
+        strided map the kernel pair of ``ea_apply_cuda``, which promotes
+        f32 blocks to an f64 x in registers; elsewhere the blocks cast to
+        x's dtype)."""
         if self.pa:
-            return pa_apply_cuda.pa_apply_reference(
-                k_data, self.dshape_as(x.dtype), x, self.emap)
+            apply = pa_apply_cuda.pa_apply if self.pa_kernel \
+                else pa_apply_cuda.pa_apply_reference
+            return apply(k_data.to(x.dtype), self.dshape_as(x.dtype), x,
+                         self.emap)
         return ops.apply_ea(k_data, self.emap, x)
 
     def grad_matvec(self, k_data, x, ess):
@@ -678,9 +680,18 @@ class MechSystem:
         system's pool, with grad_matvec's masked apply as the fine matvec,
         but with no span and past any wrapper put on ``apply_k``: nothing
         inside a capture may record a timing event (the recorder is paused
-        there too)."""
+        there too).  On the strided map the captured fine apply must be
+        the EA kernel pair (``ea_apply_cuda.engages``): the blocks are
+        read in place, and the pool holds no copy of them."""
         graphs = None
         if diag.is_cuda:
+            if isinstance(self.emap, StructuredMap) \
+                    and not ea_apply_cuda.engages(k_data, self.emap, diag):
+                raise RuntimeError(
+                    "the V-cycle's graph would capture the plain EA apply: "
+                    f"blocks {tuple(k_data.shape)}, contiguous "
+                    f"{k_data.is_contiguous()}, on the strided map of order "
+                    f"{self.emap.p}")
             if self._cycle_graphs is None:
                 self._cycle_graphs = gmg.CycleGraphs(diag.device)
             graphs = self._cycle_graphs

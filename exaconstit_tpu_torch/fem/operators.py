@@ -9,8 +9,10 @@ batch axes last like them:
   node*3 + comp, K[(a,i),(b,k)] = sum_q w dt detJ dN_a/dx_j C4[i,j,k,l]
   dN_b/dx_l with the 6x6 engineering-shear tangent expanded to the
   un-symmetrized C4;
-* the EA matvec (``apply_ea``), the masked apply (``masked_apply``) and
-  the EA diagonal (the Jacobi preconditioner);
+* the EA matvec (``apply_ea``: on the card the kernel pair of
+  ``ea_apply_cuda`` on the strided map of an order-1 brick, else the
+  plain form), the masked apply (``masked_apply``) and the EA diagonal
+  (the Jacobi preconditioner);
 * partial assembly (PA): the per-point tensor D[i,s,k,t] = (w dt/detJ)
   adj[s,j] C4[i,j,k,l] adj[t,l], its matvec through the reference shape
   gradients, and the diagonal without forming EA blocks;
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from ..utils.tensors import fixed_dot
+from . import ea_apply_cuda
 from .geometry import adjugate_3x3_cm, det_3x3_cm, jacobians_cm
 
 # Voigt index pairs in svec order [11, 22, 33, 23, 13, 12]
@@ -109,7 +112,18 @@ def apply_ea_gradient_cm(k_cm, el_u_cm):
 
 def apply_ea(k_cm, emap, x):
     """y = K x of the flat nodal field x over the element map ``emap``
-    with the EA blocks (cast to x's dtype)."""
+    with the EA blocks.  On the card, on the strided map of an order-1
+    brick with contiguous blocks, the hand-written kernel pair
+    (``ea_apply_cuda.ea_apply``, which reads the blocks in place);
+    elsewhere the plain form, ``apply_ea_plain``."""
+    if ea_apply_cuda.engages(k_cm, emap, x):
+        return ea_apply_cuda.ea_apply(k_cm, emap, x)
+    return apply_ea_plain(k_cm, emap, x)
+
+
+def apply_ea_plain(k_cm, emap, x):
+    """``apply_ea``'s plain form: the blocks cast to x's dtype, the
+    map's gather, the batched contraction and the map's scatter."""
     return emap.scatter_add(apply_ea_gradient_cm(k_cm.to(x.dtype),
                                                  emap.gather(x)))
 

@@ -35,53 +35,14 @@ ENTRY = {torch.float32: "pa_apply_f32", torch.float64: "pa_apply_f64"}
 KERNELS = ("element f32", "element f64", "node f32", "node f64")
 
 
-class PAApplyKernel:
+class PAApplyKernel(nvcc.KernelLibrary):
     """The built kernel library and its launch count: ``launches`` grows
     by one per apply on the card (two kernel launches) and nowhere
-    else, so a run can show that its applies went through the kernels."""
+    else."""
 
     def __init__(self):
-        self.launches = 0
-        self.build_log = ""
-        self._lib = None
-
-    def library_path(self) -> Path:
-        return nvcc.library_path(SOURCE)
-
-    def build(self) -> Path:
-        """Compile the kernels unless this source is already built."""
-        path, log = nvcc.build(SOURCE)
-        self.build_log = log or self.build_log
-        return path
-
-    def lib(self):
-        if self._lib is None:
-            lib = ctypes.CDLL(str(self.build()))
-            for name in ENTRY.values():
-                getattr(lib, name).argtypes = ARGTYPES
-                getattr(lib, name).restype = ctypes.c_int
-            lib.pa_apply_build_info.argtypes = \
-                [ctypes.c_int] + [ctypes.c_void_p] * 5
-            lib.pa_apply_build_info.restype = ctypes.c_int
-            self._lib = lib
-        return self._lib
-
-    def build_info(self) -> dict:
-        """{kernel: registers and local (stack and spill) bytes per
-        thread, static shared bytes, resident blocks per SM and threads
-        per block}, as the CUDA runtime reports them for the current
-        device."""
-        out = {}
-        for which, name in enumerate(KERNELS):
-            vals = [ctypes.c_int(0) for _ in range(5)]
-            err = self.lib().pa_apply_build_info(
-                which, *(ctypes.byref(v) for v in vals))
-            if err != 0:
-                raise RuntimeError(f"pa_apply_build_info: CUDA error {err}")
-            out[name] = dict(zip(("registers", "local_bytes", "shared_bytes",
-                                  "blocks_per_sm", "threads"),
-                                 (v.value for v in vals)))
-        return out
+        super().__init__(SOURCE, tuple(ENTRY.values()), ARGTYPES,
+                         "pa_apply_build_info", KERNELS)
 
     def launch(self, d_pa, dshape, x, conn_t, table):
         """The two kernels on the current stream: (y, el_y), y (3*nn,)

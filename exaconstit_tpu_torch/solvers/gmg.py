@@ -26,9 +26,10 @@ matvec is the one given as ``graph_matvec``: nothing inside a capture
 may record a timing event.  CPU tensors run the eager cycle.
 
 The pool stays reserved for the system's life.  It holds the cycle's
-working set (the contiguous copy of the fine blocks that each fine EA
-apply makes, the coarse level's, the cycle's vectors) and the capture
-stream's cuBLAS workspace.  That memory is the card's but not
+working set (its vectors and the EA applies' element vectors: on the
+card every level's apply is the kernel pair of ``fem/ea_apply_cuda``,
+which reads the blocks in place, so a level's blocks are contiguous) and
+the capture stream's cuBLAS workspace.  That memory is the card's but not
 ``torch.cuda.memory_allocated``'s once a capture has ended: measure the
 footprint by reserved memory.
 
@@ -123,7 +124,9 @@ def _mask_blocks(k_cm, ess_el):
 
 
 def _rap(k_f, grid_f, wd):
-    """Galerkin-coarsen (24, 24, ne_f) blocks to the half grid."""
+    """Galerkin-coarsen (24, 24, ne_f) blocks to the half grid: the
+    coarse blocks contiguous, element fastest, as the fine ones are (the
+    layout the EA apply's kernel pair reads)."""
     nx, ny, nz = grid_f
     kg = k_f.reshape(24, 24, nz, ny, nx)
     out = None
@@ -134,7 +137,8 @@ def _rap(k_f, grid_f, wd):
         t = torch.einsum("ab,bcKJI->acKJI", w.T, ko)  # W^T K W per element
         t = torch.einsum("acKJI,cd->adKJI", t, w)
         out = t if out is None else out + t
-    return out.reshape(24, 24, (nz // 2) * (ny // 2) * (nx // 2))
+    return out.reshape(24, 24, (nz // 2) * (ny // 2) * (nx // 2)) \
+        .contiguous()
 
 
 def _coarsen_field(a3, grid_f):

@@ -15,7 +15,9 @@ reused) and over repeated replays (a returned z is not overwritten);
 bitwise; the counters count the builds and the V-cycles; nothing is
 timed inside a capture, also with an apply wrapped in timing events;
 once the solve returns the graph is gone without the cycle collector and
-the device memory is back where it was.  Imports nothing of the JAX
+the device memory is back where it was; a hierarchy whose applies go
+through ``fem/operators.apply_ea`` captures the EA kernel pair for each
+fine and coarse apply of a V-cycle.  Imports nothing of the JAX
 package, so that the card's tests run with
 
     python -m pytest tests/test_torch_gmg_graph.py -q -m cuda   # on the card
@@ -32,6 +34,7 @@ import torch
 from exaconstit_tpu_torch import cases
 from exaconstit_tpu_torch.config.options import parse_options
 from exaconstit_tpu_torch.driver import Simulation
+from exaconstit_tpu_torch.fem import ea_apply_cuda
 from exaconstit_tpu_torch.fem import operators as ops
 from exaconstit_tpu_torch.fem.space import StructuredMap
 from exaconstit_tpu_torch.solvers import gmg
@@ -66,9 +69,7 @@ def _problem(grid, seed, dtype, device):
     diag = torch.where(ess, 1.0, smap.scatter_add(dloc.transpose(0, 1)))
 
     def matvec(x):
-        y = smap.scatter_add(ops.apply_ea_gradient_cm(
-            k.to(x.dtype), smap.gather(torch.where(ess, 0.0, x))))
-        return torch.where(ess, x, y)
+        return ops.masked_apply(lambda v: ops.apply_ea(k, smap, v), x, ess)
 
     return k, ess, matvec, diag
 
@@ -261,6 +262,33 @@ def test_hierarchies_in_turn_reuse_the_pool():
 
 
 @pytest.mark.cuda
+def test_capture_takes_the_ea_kernel():
+    """``_problem``'s hierarchy, whose applies go through
+    ``fem/operators.apply_ea`` as the system's do: the capture launches
+    the EA kernel pair once for each apply of a V-cycle on the two levels
+    above the dense one (9 a level), the replay launches them from the
+    graph alone, and it is bitwise the eager cycle.  Prints the pool's
+    reserved bytes."""
+    _needs_card()
+    k, ess, matvec, diag = _problem(LARGE, 3, f32, "cuda")
+    meta = gmg.GMGMeta(LARGE)
+    levels = gmg._build(meta, k, ess, matvec, diag)
+    graphs = gmg.CycleGraphs("cuda")
+    before = ea_apply_cuda.KERNEL.launches
+    levels.graph = graphs.capture(levels, matvec, diag)
+    captured = ea_apply_cuda.KERNEL.launches - before
+    assert meta.nlevels == 3 and meta.coarse_dense
+    assert captured == (meta.nlevels - 1) * (2 * gmg.DEGREE + 3) == 18
+    r = _vector(diag.numel(), 5, f32, "cuda")
+    z = gmg.v_cycle(levels, r)
+    assert ea_apply_cuda.KERNEL.launches == before + captured
+    assert torch.equal(z, gmg._cycle(levels, 0, r))
+    torch.cuda.synchronize()
+    print(f"EA kernel in the graph: {captured} applies captured, pool "
+          f"{_pool_bytes(graphs.pool)} B reserved")
+
+
+@pytest.mark.cuda
 def test_returned_z_is_not_overwritten():
     _needs_card()
     levels = _levels(LARGE, 3, f32, gmg.CycleGraphs("cuda"))
@@ -375,6 +403,44 @@ def test_nothing_timed_inside_a_capture(card_step):
     assert "gmg.coarse_solve" not in spans
     assert spans["gmg.v_cycle"]["calls"] == seen["v_cycle"]
     assert spans["gmg.build"]["calls"] == seen["build"]
+
+
+@pytest.mark.cuda
+def test_system_capture_takes_only_the_ea_kernel(card_step, monkeypatch):
+    """The system's V-cycle graph on the card's strided map captures the
+    EA kernel pair for each apply of the level above the dense one (9 at
+    10^3) and never the plain apply, and ``_gmg_levels`` refuses blocks
+    that would put the plain apply inside the capture."""
+    sim, _, args = card_step
+    sysm = sim.system
+    k32 = args[0].to(f32)
+    diag, ess = args[1].to(f32), args[3]
+    captured = Counter()
+    launch, plain = ea_apply_cuda.KERNEL.launch, ops.apply_ea_plain
+
+    def counted_launch(*a):
+        captured["kernel"] += torch.cuda.is_current_stream_capturing()
+        return launch(*a)
+
+    def counted_plain(*a):
+        captured["plain"] += torch.cuda.is_current_stream_capturing()
+        return plain(*a)
+
+    monkeypatch.setattr(ea_apply_cuda.KERNEL, "launch", counted_launch)
+    monkeypatch.setattr(ops, "apply_ea_plain", counted_plain)
+
+    def matvec(x):
+        return sysm.grad_matvec(k32, x, ess)
+
+    with torch.inference_mode():
+        levels = sysm._gmg_levels(k32, ess, matvec, diag)
+        torch.cuda.synchronize()
+        assert levels.graph is not None
+        assert captured["kernel"] == 2 * gmg.DEGREE + 3
+        assert captured["plain"] == 0
+        strided = k32.permute(0, 2, 1).contiguous().permute(0, 2, 1)
+        with pytest.raises(RuntimeError, match="plain EA apply"):
+            sysm._gmg_levels(strided, ess, matvec, diag)
 
 
 @pytest.mark.cuda
