@@ -4,9 +4,12 @@ reading, the comparison with the reference, the result line.
 Everything a cell needs is found by name: ``BENCHMARK.json`` names the
 cell's configuration and traffic; the configuration is
 ``configs/<config>.json`` (the case handed to the frozen input writer,
-and the limits of the comparison), the traffic ``traffic/<mix>.json``
-(the episode's dt schedule) and each per-layer metric
-``metrics/<metric>.py`` (a reader of the traced run).
+and the limits of the comparison), its case's material (``material``,
+``cases.DEFAULT_MATERIAL`` where it names none) ``inputs/<material>.py``
+(what the input writer writes for it) and ``reference/<material>.py``
+(its plain point model and the state compared), the traffic
+``traffic/<mix>.json`` (the episode's dt schedule) and each per-layer
+metric ``metrics/<metric>.py`` (a reader of the traced run).
 
 The window drives the program's own entry, ``Simulation.advance`` and
 ``Simulation.write_averages``, one load step at a time, in episodes
@@ -27,9 +30,9 @@ from pathlib import Path
 
 import numpy as np
 
-from .inputs.cases import TOLERANCES, write_case
-from .reference.judge import NUMBERS, STATE, control_steps, judge
-from .reference.voce import SLOTS
+from .inputs.cases import MATERIAL_NAMES, TOLERANCES, material_module, \
+    material_of, write_case
+from .reference.judge import NUMBERS, control_steps, judge
 from . import tracing
 
 ROOT = Path(__file__).resolve().parent
@@ -45,7 +48,9 @@ def load_json(path):
 
 def resolve(workload):
     """(workload entry, configuration file, traffic file, metrics of the
-    cell) of ``workload`` in ``BENCHMARK.json``."""
+    cell) of ``workload`` in ``BENCHMARK.json``.  Raises, as
+    ``cases.material_module`` does, where the configuration's material
+    lacks its input or reference module."""
     bench = load_json(REPO / "BENCHMARK.json")
     cells = {w["name"]: w for w in bench["workloads"]}
     if workload not in cells:
@@ -53,6 +58,8 @@ def resolve(workload):
     cell = cells[workload]
     configs = {c["name"]: c for c in bench["configs"]}
     config = load_json(REPO / configs[cell["config"]]["file"])
+    for kind in MATERIAL_NAMES:
+        material_module(kind, material_of(config["case"]))
     traffic = load_json(ROOT / "traffic" / f"{cell['traffic']}.json")
 
     def mine(m):
@@ -154,9 +161,11 @@ class Cell:
         if nsub > 1:
             assert all(conv for _, _, conv in self.solves[-nsub:])
         subs[-1] = (subs[-1][0], host(sim.v))
+        matl = material_module("reference", self.inputs["material"])
         return dict(v=subs[-1][1], subs=subs,
                     stress=pts(sim.stress),
-                    state={n: pts(sim.state[SLOTS[n]]) for n in STATE})
+                    state={n: pts(sim.state[matl.SLOTS[n]])
+                           for n in matl.STATE})
 
     def rows(self):
         return np.loadtxt(self.rows_file, ndmin=2)

@@ -1,34 +1,38 @@
 """The benchmark's inputs, written from a seed: a frozen copy.
 
-Copied from ``exaconstit_tpu_torch/cases.py`` (its ``VOCE_PROPS``,
-``TOLERANCES``, ``voronoi_grains``, the seeded quaternions, the options
-file and ``write_mfem_mesh``) so that a change to the program cannot
-change what the benchmark feeds it.  Nothing here imports the program:
-the voxel brick is built by ``brick`` below, with the numbering the
-program's ``make_cartesian_mesh`` uses (nodes and elements x fastest,
-local nodes lexicographic), and the plain reference builds its mesh
-from the same function or from the mesh file written here.
+Copied from ``exaconstit_tpu_torch/cases.py`` (its ``TOLERANCES``,
+``voronoi_grains``, the seeded quaternions, the options file and
+``write_mfem_mesh``) so that a change to the program cannot change what
+the benchmark feeds it.  Nothing here imports the program: the voxel
+brick is built by ``brick`` below, with the numbering the program's
+``make_cartesian_mesh`` uses (nodes and elements x fastest, local nodes
+lexicographic), and the plain reference builds its mesh from the same
+function or from the mesh file written here.
 
-The case is the copper FCC crystal with power-law slip and Voce
-hardening under uniaxial tension along z at 1e-3/s with symmetry planes
-at x = 0, y = 0, z = 0 (ExaConstit's ``test/data/voce_full.toml`` and
-``voce_pa.toml``).
+The case is an ExaCMech crystal under uniaxial tension along z at
+1e-3/s with symmetry planes at x = 0, y = 0, z = 0.  Its material is
+the one the configuration's ``case`` names under ``material``
+(``DEFAULT_MATERIAL`` where it names none): ``inputs/<material>.py``
+holds its props, initial state and model types, and
+``reference/<material>.py`` its plain point model.
 """
 
 from __future__ import annotations
 
+import importlib
 import os
+from pathlib import Path
 
 import numpy as np
 
-VOCE_PROPS = np.array([
-    8.920e-6, 0.003435984, 1.0e-10,      # rho0, cv, solver tol
-    168.4, 121.4, 75.2,                  # c11, c12, c44 (GPa)
-    44.0, 0.02, 1.0,                     # mu, m, gdot_0
-    400.0e-3, 17.0e-3, 122.4e-3,         # h0, g0, gs0
-    0.0, 5.0e9, 17.0e-3,                 # xms, gam_s, hdn_init
-    0.0, -1.0307952,                     # gruneisen, ref energy
-])
+# the material of a case that names none
+DEFAULT_MATERIAL = "voce"
+# what each of a material's two modules defines
+MATERIAL_NAMES = {
+    "inputs": ("PROPS", "INITIAL_STATE", "XTAL_TYPE", "SLIP_TYPE"),
+    "reference": ("PointModel", "SLOTS", "STATE"),
+}
+_HARNESS = Path(__file__).resolve().parent.parent
 
 # [Solvers.NR] rel_tol, abs_tol, [Solvers.Krylov] rel_tol and the point
 # solve's tolerance (None keeps the props file's) by precision
@@ -45,16 +49,18 @@ TOLERANCES = {
 ESSENTIAL = ((1, 3, (0.0, 0.0, 0.0)), (2, 1, (0.0, 0.0, 0.0)),
              (3, 2, (0.0, 0.0, 0.0)), (4, 3, (0.0, 0.0, 0.001)))
 
+# the options file; the quaternion sits at history slot 9, 4 wide, in
+# every ExaCMech material
 _TOML = """\
 Version = "0.6.0"
 [Properties]
     temperature = 298
     [Properties.Matl_Props]
-        floc = "props_cp_voce.txt"
+        floc = "props_cp_{material}.txt"
         num_props = {num_props}
     [Properties.State_Vars]
-        floc = "state_cp_voce.txt"
-        num_vars = 24
+        floc = "state_cp_{material}.txt"
+        num_vars = {num_vars}
     [Properties.Grain]
         ori_state_var_loc = 9
         ori_stride = 4
@@ -70,8 +76,8 @@ Version = "0.6.0"
     mech_type = "exacmech"
     cp = true
     [Model.ExaCMech]
-        xtal_type = "fcc"
-        slip_type = "powervoce"
+        xtal_type = "{xtal_type}"
+        slip_type = "{slip_type}"
 [Time]
     [Time.Custom]
         nsteps = {nsteps}
@@ -108,6 +114,34 @@ Version = "0.6.0"
         length = [1.0, 1.0, 1.0]
         ncuts = [{nx}, {ny}, {nz}]
 """
+
+
+def material_of(case) -> str:
+    """The name of the material a configuration's ``case`` names."""
+    name = case.get("material", DEFAULT_MATERIAL)
+    if not name.isidentifier():
+        raise ValueError(f"material {name!r} is not a module name")
+    return name
+
+
+def material_module(kind, name):
+    """The module ``<kind>/<name>.py`` of the material ``name``, where
+    ``kind`` is ``inputs`` or ``reference``.  Raises ``FileNotFoundError``
+    naming the paths it looked for where either of the material's two
+    modules is missing, and ``ImportError`` where the module lacks a name
+    of ``MATERIAL_NAMES[kind]`` (as the harness's own modules beside it
+    do)."""
+    paths = {k: _HARNESS / k / f"{name}.py" for k in MATERIAL_NAMES}
+    missing = [str(p) for p in paths.values() if not p.is_file()]
+    if missing:
+        raise FileNotFoundError(
+            f"material {name!r}: looked for {paths['inputs']} and "
+            f"{paths['reference']}; missing {' and '.join(missing)}")
+    mod = importlib.import_module(f"{_HARNESS.name}.{kind}.{name}")
+    lacking = [a for a in MATERIAL_NAMES[kind] if not hasattr(mod, a)]
+    if lacking:
+        raise ImportError(f"{paths[kind]} lacks {', '.join(lacking)}")
+    return mod
 
 
 def voronoi_grains(ncuts, ngrains, seed) -> np.ndarray:
@@ -201,18 +235,20 @@ def write_mfem_mesh(path, ncuts, grains):
 
 
 def write_case(dirpath, case, dts, seed) -> dict:
-    """Write the Voce case ``case`` (a configuration's ``case`` block:
+    """Write the case ``case`` (a configuration's ``case`` block:
     ncuts, ngrains, mesh_file, assembly, precond, precision, krylov_iter,
-    and optionally microstructure_seed)
-    for the load steps ``dts`` into ``dirpath``.  Returns the inputs both
-    sides read: the options file's path, the grain map, the quaternions
-    and the props."""
+    and optionally microstructure_seed and material) for the load steps
+    ``dts`` into ``dirpath``, with the options file ``<material>.toml``.
+    Returns the inputs both sides read: the options file's path, the
+    grain map, the quaternions, the props and the material's name."""
     os.makedirs(dirpath, exist_ok=True)
+    material = material_of(case)
+    matl = material_module("inputs", material)
     ncuts = tuple(int(c) for c in case["ncuts"])
     ngrains = int(case["ngrains"])
     precision = case.get("precision", "f64")
     tols = TOLERANCES[precision]
-    props = np.array(VOCE_PROPS, dtype=float)
+    props = np.array(matl.PROPS, dtype=float)
     if tols["solver_tol"] is not None:
         props[2] = tols["solver_tol"]
     if "microstructure_seed" in case:
@@ -228,8 +264,9 @@ def write_case(dirpath, case, dts, seed) -> dict:
     else:
         quats = quaternions(ngrains, seed)
         grains = voronoi_grains(ncuts, ngrains, seed + 1)
-    np.savetxt(os.path.join(dirpath, "props_cp_voce.txt"), props)
-    np.savetxt(os.path.join(dirpath, "state_cp_voce.txt"), np.zeros(24))
+    np.savetxt(os.path.join(dirpath, f"props_cp_{material}.txt"), props)
+    np.savetxt(os.path.join(dirpath, f"state_cp_{material}.txt"),
+               matl.INITIAL_STATE)
     np.savetxt(os.path.join(dirpath, "quats.ori"), quats)
     np.savetxt(os.path.join(dirpath, "grains.txt"), grains, fmt="%d")
     np.savetxt(os.path.join(dirpath, "dt.txt"), np.asarray(dts, float))
@@ -237,14 +274,16 @@ def write_case(dirpath, case, dts, seed) -> dict:
     if case.get("mesh_file", False):
         write_mfem_mesh(os.path.join(dirpath, "mesh.mesh"), ncuts, grains)
         mesh_floc = '    floc = "mesh.mesh"\n'
-    path = os.path.join(dirpath, "voce.toml")
+    path = os.path.join(dirpath, f"{material}.toml")
     with open(path, "w") as f:
         f.write(_TOML.format(
-            num_props=len(props), ngrains=ngrains,
+            material=material, num_props=len(props),
+            num_vars=len(matl.INITIAL_STATE), ngrains=ngrains,
             ess_ids=", ".join(str(a) for a, _, _ in ESSENTIAL),
             ess_comps=", ".join(str(c) for _, c, _ in ESSENTIAL),
             ess_vals=", ".join(repr(float(x)) for _, _, v in ESSENTIAL
                                for x in v),
+            xtal_type=matl.XTAL_TYPE, slip_type=matl.SLIP_TYPE,
             nsteps=len(dts), assembly=case["assembly"],
             precision=precision, precond=case["precond"],
             krylov_iter=int(case.get("krylov_iter", 1000)),
@@ -253,6 +292,6 @@ def write_case(dirpath, case, dts, seed) -> dict:
             mesh_type="other" if case.get("mesh_file", False) else "auto",
             mesh_floc=mesh_floc, nx=ncuts[0], ny=ncuts[1], nz=ncuts[2]))
     return dict(options=path, dirpath=dirpath, ncuts=ncuts, grains=grains,
-                quats=quats, props=props,
+                quats=quats, props=props, material=material,
                 mesh_file=os.path.join(dirpath, "mesh.mesh")
                 if case.get("mesh_file", False) else None)

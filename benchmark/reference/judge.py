@@ -15,8 +15,8 @@ Numbers, each a maximum over the episode's steps:
 
 * ``stress``: max over points and components of |program - reference|
   over the step's largest |reference stress|;
-* ``state``: the same for the elastic strain, the quaternion and the
-  slip strength, the largest of the three;
+* ``state``: the same for each quantity the material's ``STATE`` names,
+  the largest;
 * ``equilibrium``: the norm of the reference's nodal force residual at
   the free dofs at the program's velocity, over the tolerance the
   options file states for Newton's method: max(rel_tol times that norm
@@ -39,12 +39,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..inputs.cases import ESSENTIAL
+from ..inputs.cases import ESSENTIAL, material_module
 from .fem import Element, load_mesh
-from .voce import VoceFCC
 
 NUMBERS = ("stress", "state", "equilibrium", "avg_stress", "bc_velocity")
-STATE = ("e", "q", "h")
 
 
 def prescribed(nn, bdr):
@@ -96,7 +94,8 @@ def replay(inputs, dts, subs, device, dtype=torch.float64, mesh=None):
     coords, conn, grains, bdr = mesh or load_mesh(inputs)
     nn, ne = len(coords), len(conn)
     mask, _ = prescribed(nn, bdr)
-    mat = VoceFCC(inputs["props"], device, dtype)
+    matl = material_module("reference", inputs["material"])
+    mat = matl.PointModel(inputs["props"], device, dtype)
     elem = Element(device, dtype)
     t = dict(dtype=dtype, device=device)
     quats = torch.as_tensor(inputs["quats"], **t)[
@@ -150,14 +149,14 @@ def replay(inputs, dts, subs, device, dtype=torch.float64, mesh=None):
         v_prev = step_subs[-1][1]
         yield dict(stress=stress,
                    state={n: state[n] if state[n].dim() == 3
-                          else state[n][..., None] for n in STATE},
+                          else state[n][..., None] for n in matl.STATE},
                    avg=avg, residuals=residuals, point_residual=res_max)
 
 
 def judge(inputs, dts, steps, rows, device, nr_rel_tol, nr_abs_tol):
     """Numbers of the episode ``steps`` (one dict per step: ``v`` (nn, 3),
-    ``stress`` (6, nq, ne), ``state`` {e, q, h: (k, nq, ne)}, host
-    arrays) against the float64 reference; ``rows[k]`` lists the
+    ``stress`` (6, nq, ne), ``state`` {the material's ``STATE``: (k, nq,
+    ne)}, host arrays) against the float64 reference; ``rows[k]`` lists the
     window's rows for step k; ``nr_rel_tol`` and ``nr_abs_tol`` are the
     Newton tolerances the options file states.  Returns ({number:
     value}, notes)."""
@@ -173,7 +172,7 @@ def judge(inputs, dts, steps, rows, device, nr_rel_tol, nr_abs_tol):
                          f"|r| {r['point_residual']:.3e}")
         out["stress"] = max(out["stress"], _gap(got["stress"], r["stress"]))
         out["state"] = max(out["state"], *(
-            _gap(got["state"][n], r["state"][n]) for n in STATE))
+            _gap(got["state"][n], r["state"][n]) for n in r["state"]))
         out["equilibrium"] = max(out["equilibrium"], *(
             res / max(nr_rel_tol * res0, nr_abs_tol)
             for res, res0 in r["residuals"]))
@@ -207,6 +206,6 @@ def control_steps(inputs, dts, subs, device):
             v=s[-1][1], subs=s,
             stress=r["stress"].permute(2, 1, 0).double().cpu().numpy(),
             state={n: r["state"][n].permute(2, 1, 0).double().cpu().numpy()
-                   for n in STATE}))
+                   for n in r["state"]}))
         rows.append([r["avg"]])
     return steps, rows

@@ -26,6 +26,10 @@ Newton's method with the exact Jacobian (forward-mode derivatives, one
 direction per unknown) solves the 8 equations of every point to
 rounding.  The steps this runs are single solves (no substeps): the
 substep count floor(dt gdot0 / 0.1) is 1 for dt < 0.2.
+
+A material's reference module holds ``PointModel`` (``virgin`` and
+``update``), ``SLOTS`` (where the program's history keeps each compared
+quantity) and ``STATE`` (the quantities compared).
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ H_GD_BLEND = 0.99608
 # the state slots the program's history layout gives the compared
 # quantities: elastic strain, quaternion, slip strength
 SLOTS = {"e": slice(4, 9), "q": slice(9, 13), "h": slice(13, 14)}
+STATE = ("e", "q", "h")
 
 
 def fcc_slip():
@@ -101,8 +106,9 @@ def rotation(q):
                      1 - 2 * (q1 * q1 + q2 * q2)], -1)], -2)
 
 
-class VoceFCC:
-    """The material constants from the props file, as tensors."""
+class PointModel:
+    """The Voce FCC point update, its material constants from the props
+    file as tensors."""
 
     def __init__(self, props, device, dtype=torch.float64):
         p = np.asarray(props, float)
